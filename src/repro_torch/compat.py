@@ -9,6 +9,11 @@ tree)``) into the port's tree of tensors on ``device``:
 * everything else keeps its layout: the P²M ``theta`` (k, k, C, Co) and
   flat deploy ``w`` (k·k·C, Co) in (kh, kw, C)-fastest order, ``fc``,
   and every BN vector.
+
+`train_state_from_reference` carries a whole VWW train state across:
+``params``, ``bn``, the optimizer state (``mu``, or ``m`` and ``v``, which
+mirror the parameters and so take the same layouts), ``extras.ef_error``
+and ``step`` (a host int).
 """
 from __future__ import annotations
 
@@ -29,3 +34,14 @@ def tree_from_reference(tree, *, device):
                 out[key] = tree_from_reference(value, device=device)
         return out
     return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)
+
+
+def train_state_from_reference(state: dict, *, device) -> dict:
+    """Reference VWW train state (numpy leaves, `repro.train.vision.
+    vww_train_state`'s structure) → the port's, tensors on ``device``."""
+    out = {key: tree_from_reference(state[key], device=device)
+           for key in ("params", "bn", "opt")}
+    out["step"] = int(np.asarray(state["step"]))
+    if "extras" in state:
+        out["extras"] = tree_from_reference(state["extras"], device=device)
+    return out

@@ -16,6 +16,9 @@ SMOKE = MNV2Config(variant="p2m", image_size=80, width=0.25, head_channels=64,
 SMOKE_BASELINE = MNV2Config(variant="baseline", image_size=80, width=0.25,
                             head_channels=64)
 
+# Training batch of the paper's recipe (examples/train_vww_p2m.py::train).
+TRAIN_BATCH = 32
+
 # Batched vision serving defaults (serving/vision.py).  Microbatch 8;
 # queue depth 64 rides out ~8 launches of burst before the oldest-frame
 # eviction policy sheds.

@@ -2,7 +2,6 @@
 
 The counter gives signed accumulation, a quantized ReLU (clamp at ≥ 0)
 and the BN shift term (counter pre-load to ``round(B/Δ)``) for free.
-The straight-through ``ste_adc`` comes with the training slice.
 """
 from __future__ import annotations
 
@@ -45,6 +44,28 @@ def adc_dequant(counts: torch.Tensor, cfg: ADCConfig) -> torch.Tensor:
     return counts.to(torch.float32) * cfg.v_lsb
 
 
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``min(max(x, lo), hi)`` with the reference's gradient (`jnp.clip`):
+    at an exact tie with a bound the gradient is split in half, where
+    `torch.clamp` passes all of it.  A tie occurs where a value lands on
+    a bound exactly, as a BN output of a channel that is constant over
+    the batch does (it is ``beta``, 0 at init)."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)),
+                         x.new_full((), hi))
+
+
 def shifted_relu(v: torch.Tensor, shift, cfg: ADCConfig) -> torch.Tensor:
     """Float view of the ADC: ``clip(v + shift, 0, full_scale)``."""
-    return torch.clamp(v + shift, 0.0, cfg.full_scale)
+    return clip(v + shift, 0.0, cfg.full_scale)
+
+
+def ste_adc(v: torch.Tensor, shift: torch.Tensor,
+            cfg: ADCConfig) -> torch.Tensor:
+    """Quantization-aware ADC: forward integer-exact, backward identity
+    through the clip's linear region (straight-through estimator)."""
+    soft = shifted_relu(v, shift, cfg)
+    shift = torch.as_tensor(shift, dtype=torch.float32, device=v.device)
+    lsb = torch.tensor(cfg.v_lsb, dtype=torch.float32, device=v.device)
+    preset = torch.round(shift / lsb).to(torch.int32)
+    hard = adc_dequant(adc_counts(v, cfg, preset_counts=preset), cfg)
+    return soft + (hard - soft).detach()

@@ -1,19 +1,23 @@
 """The P²M in-pixel convolutional layer (paper §3.2, §4.1-4.2); port of
-`repro.core.p2m_conv` (deploy form; the train form comes with the
-training slice).
+`repro.core.p2m_conv`.
 
 Every multiply is the pixel function ``g(w, x)``, weights live in
 [−1, 1], and the output passes through the SS-ADC: shifted ReLU with
-full-scale saturation, optionally integer-quantized.  The deploy form has
-BN folded (scale into the weights, shift into the ADC counter pre-load;
-`bn_fold.deploy_params`).
+full-scale saturation, optionally integer-quantized.  Two forms:
+
+* **train form** (`apply_p2m_conv_train`) — conv(g) → BatchNorm (batch
+  statistics) → saturating ReLU; what the paper trains.
+* **deploy form** (`apply_p2m_conv_deploy`) — BN folded (scale into the
+  weights, shift into the ADC counter pre-load; `bn_fold.deploy_params`).
 
 Conv implementations (``impl``):
 
-* ``"cuda"`` — the hand-written CUDA kernel; the default for a CUDA
-  tensor, and an error for a CPU tensor.
-* ``"plain"`` — the kernel's plain PyTorch twin; the default for a CPU
-  tensor.
+* ``"cuda"`` — the hand-written CUDA kernels: the forward kernel, and in
+  the train form the closed-form backward kernels through
+  `ops.P2MConvFunction`; the default for a CUDA tensor, and an error for a
+  CPU tensor.
+* ``"plain"`` — the kernels' plain PyTorch twin (autograd through it in
+  the train form); the default for a CPU tensor.
 * ``"patches"`` — `extract_patches` + `p2m_matmul_plain`, the
   patch-materializing reference.
 
@@ -26,14 +30,19 @@ from typing import Any
 
 import torch
 
-from repro_torch.core.adc import ADCConfig
+from repro_torch.core.adc import ADCConfig, clip
 from repro_torch.core.pixel_model import PixelModel, default_pixel_model
 from repro_torch.kernels.p2m_conv.conv import (
     p2m_conv_fused,
+    p2m_conv_plain,
     p2m_conv_premixed_plain,
     premix_rows,
 )
-from repro_torch.kernels.p2m_conv.ops import _coeff_tuple, p2m_matmul_plain
+from repro_torch.kernels.p2m_conv.ops import (
+    _coeff_tuple,
+    p2m_conv,
+    p2m_matmul_plain,
+)
 
 IMPLS = ("cuda", "plain", "patches")
 
@@ -98,7 +107,7 @@ def init_p2m_state(cfg: P2MConvConfig, *, device) -> dict[str, Any]:
 def _flat_weights(theta: torch.Tensor, cfg: P2MConvConfig) -> torch.Tensor:
     """(k,k,C,Co) → (k·k·C, Co), clipped to the transistor range [−1, 1]."""
     k = cfg.kernel
-    w = torch.clamp(theta, -1.0, 1.0)
+    w = clip(theta, -1.0, 1.0)
     return w.reshape(k * k * cfg.in_channels, cfg.out_channels)
 
 
@@ -112,6 +121,79 @@ def _resolve_impl(impl: str | None, images: torch.Tensor) -> str:
         raise ValueError("impl='cuda' needs CUDA tensors, got images on "
                          f"{images.device}")
     return impl
+
+
+def _conv_raw(images: torch.Tensor, w: torch.Tensor, cfg: P2MConvConfig,
+              model: PixelModel, impl: str) -> torch.Tensor:
+    """Pre-epilogue conv accumulation (B, Ho, Wo, Co) via ``impl``,
+    differentiable in ``images`` and ``w``."""
+    zero = torch.zeros(cfg.out_channels, dtype=torch.float32,
+                       device=images.device)
+    if impl == "cuda":
+        return p2m_conv(images, w, zero, model, cfg.adc, "raw", cfg.kernel,
+                        cfg.stride)
+    if impl == "plain":
+        return p2m_conv_plain(images, w, zero, kernel=cfg.kernel,
+                              stride=cfg.stride, coeffs=_coeff_tuple(model),
+                              mode="raw")
+    b = images.shape[0]
+    ho = cfg.out_spatial(images.shape[1])
+    wo = cfg.out_spatial(images.shape[2])
+    patches = extract_patches(images, cfg.kernel, cfg.stride)  # (B,P,K)
+    xf = patches.reshape(b * patches.shape[1], -1)
+    raw = p2m_matmul_plain(xf, w, zero, model, cfg.adc, mode="raw")
+    return raw.reshape(b, ho, wo, cfg.out_channels)
+
+
+def apply_p2m_conv_train(
+    params: dict,
+    state: dict,
+    images: torch.Tensor,
+    cfg: P2MConvConfig,
+    model: PixelModel | None = None,
+    *,
+    train: bool = True,
+    generator: torch.Generator | None = None,
+    impl: str | None = None,
+) -> tuple[torch.Tensor, dict]:
+    """Train-form forward: conv(g) → BN → saturating ReLU.
+
+    With ``train`` BN normalizes by the batch's mean and population
+    variance and the new state is ``0.9·old + 0.1·batch`` (momentum
+    ``cfg.bn_momentum``); otherwise it uses the running statistics.  Read
+    noise (``model.read_noise_std``) is drawn from ``generator`` when one
+    is given.  ``impl`` selects the conv (`_resolve_impl`).
+
+    Returns ``(out (B, Ho, Wo, Co), new_state)``.
+    """
+    model = model or default_pixel_model()
+    b = images.shape[0]
+    ho = cfg.out_spatial(images.shape[1])
+    wo = cfg.out_spatial(images.shape[2])
+    w = _flat_weights(params["theta"], cfg)
+
+    raw = _conv_raw(images, w, cfg, model, _resolve_impl(impl, images))
+    raw = raw.reshape(b * ho * wo, cfg.out_channels)
+    if model.read_noise_std > 0.0 and generator is not None:
+        noise = torch.randn(raw.shape, generator=generator,
+                            device=generator.device, dtype=raw.dtype)
+        raw = raw + model.read_noise_std * noise.to(raw.device)
+
+    if train:
+        mean = raw.mean(dim=0)
+        var = raw.var(dim=0, correction=0)
+        mom = cfg.bn_momentum
+        new_state = {
+            "bn_mean": mom * state["bn_mean"] + (1 - mom) * mean.detach(),
+            "bn_var": mom * state["bn_var"] + (1 - mom) * var.detach(),
+        }
+    else:
+        mean, var = state["bn_mean"], state["bn_var"]
+        new_state = state
+    xhat = (raw - mean) / torch.sqrt(var + cfg.bn_eps)
+    y = params["bn_gamma"] * xhat + params["bn_beta"]
+    y = clip(y, 0.0, cfg.adc.full_scale)  # saturating ReLU
+    return y.reshape(b, ho, wo, cfg.out_channels), new_state
 
 
 def premix_deploy(deploy: dict, cfg: P2MConvConfig,

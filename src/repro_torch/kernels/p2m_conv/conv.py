@@ -70,7 +70,11 @@ def premix_weights(w: torch.Tensor, coeffs) -> torch.Tensor:
 def premix_rows(w: torch.Tensor, coeffs, kernel: int) -> torch.Tensor:
     """W̃ in the per-kernel-row layout the conv takes: (k, dx·k·C, N),
     rows ordered (j, kw, c) to match the power-concat column order."""
-    wmix = premix_weights(w, coeffs)  # (dx, K, N)
+    return rows_from_premix(premix_weights(w, coeffs), kernel)
+
+
+def rows_from_premix(wmix: torch.Tensor, kernel: int) -> torch.Tensor:
+    """`premix_weights`' (dx, K, N) in `premix_rows`' (k, dx·k·C, N)."""
     dx, kk, n = wmix.shape
     kc = kk // kernel
     return (wmix.reshape(dx, kernel, kc, n).permute(1, 0, 2, 3)

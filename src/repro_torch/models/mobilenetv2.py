@@ -1,9 +1,12 @@
-"""MobileNetV2 for VWW (paper §5.1), baseline and P²M variants, eval only;
-port of `repro.models.mobilenetv2`.
+"""MobileNetV2 for VWW (paper §5.1), baseline and P²M variants; port of
+`repro.models.mobilenetv2`.
 
 The P²M variant replaces the first conv with the in-pixel P²M layer
-(k=5, s=5, c_o=8, 8-bit ADC output — Table 1) in its deploy form; the
-block schedule is unchanged.  Public functions keep the reference's
+(k=5, s=5, c_o=8, 8-bit ADC output — Table 1): its train form (conv, BN,
+saturating ReLU) or, given a deploy tree, its folded deploy form; the
+block schedule is unchanged.  ``train=True`` normalizes every BN by its
+batch statistics (mean and population variance over N, H, W) and returns
+the new running statistics, ``0.9·old + 0.1·batch``.  Public functions keep the reference's
 layout (NHWC activations, parameter trees with its key names); inside,
 the backbone runs NCHW tensors in the channels-last memory format, so
 the layout changes at the stem and the head are views, not copies.
@@ -21,9 +24,11 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.adc import clip
 from repro_torch.core.p2m_conv import (
     P2MConvConfig,
     apply_p2m_conv_deploy,
+    apply_p2m_conv_train,
     init_p2m_conv,
     init_p2m_state,
 )
@@ -109,16 +114,29 @@ def _conv(x, w, stride=1, groups=1):
     return F.conv2d(x, w, stride=stride, groups=groups)
 
 
-def _bn(x, p, s, eps=1e-5):
-    """Eval BN on running statistics, in the reference's order of ops."""
+def _bn(x, p, s, train: bool, momentum=0.9, eps=1e-5):
+    """BN of an NCHW tensor, in the reference's order of ops: on the
+    batch's statistics (population variance) with ``train``, else on the
+    running ones.  Returns (y, new state)."""
+    if train:
+        mean = x.mean(dim=(0, 2, 3))
+        var = x.var(dim=(0, 2, 3), correction=0)
+        new_s = {
+            "mean": momentum * s["mean"] + (1 - momentum) * mean.detach(),
+            "var": momentum * s["var"] + (1 - momentum) * var.detach(),
+        }
+    else:
+        mean, var, new_s = s["mean"], s["var"], s
+
     def c(v):
         return v.reshape(1, -1, 1, 1)
-    return (x - c(s["mean"])) / torch.sqrt(c(s["var"]) + eps) * c(
-        p["gamma"]) + c(p["beta"])
+    y = (x - c(mean)) / torch.sqrt(c(var) + eps) * c(p["gamma"]) + c(
+        p["beta"])
+    return y, new_s
 
 
 def _relu6(x):
-    return torch.clamp(x, 0.0, 6.0)
+    return clip(x, 0.0, 6.0)
 
 
 # ------------------------------------------------------------------ init
@@ -186,23 +204,26 @@ def apply_mnv2_stem(
     cfg: MNV2Config,
     pixel_model: PixelModel | None = None,
     *,
+    train: bool = False,
     p2m_deploy: dict | None = None,
     p2m_impl: str | None = None,
 ) -> tuple[torch.Tensor, dict]:
-    """First layer only, eval: (B, H, W, 3) → (B, Ho, Wo, C) stem
-    activations plus the stem state.  The P²M variant needs its deploy
-    tree (``p2m_deploy``); ``p2m_impl`` selects its conv
-    (`core.p2m_conv._resolve_impl`)."""
+    """First layer only: (B, H, W, 3) → (B, Ho, Wo, C) stem activations,
+    plus the new stem state.  The P²M variant runs its deploy form when
+    given ``p2m_deploy``, else its train form; ``p2m_impl`` selects its
+    conv (`core.p2m_conv._resolve_impl`)."""
     if cfg.variant == "p2m":
-        if p2m_deploy is None:
-            raise ValueError("the P2M stem runs in deploy form: pass "
-                             "p2m_deploy (bn_fold.deploy_params)")
-        x = apply_p2m_conv_deploy(p2m_deploy, images, cfg.p2m, pixel_model,
-                                  impl=p2m_impl)
-        return x, {"stem": state["stem"]}
+        if p2m_deploy is not None:
+            x = apply_p2m_conv_deploy(p2m_deploy, images, cfg.p2m,
+                                      pixel_model, impl=p2m_impl)
+            return x, {"stem": state["stem"]}
+        x, st = apply_p2m_conv_train(params["stem"], state["stem"], images,
+                                     cfg.p2m, pixel_model, train=train,
+                                     impl=p2m_impl)
+        return x, {"stem": st}
     x = _conv(images.permute(0, 3, 1, 2), params["stem"]["w"], stride=2)
-    x = _relu6(_bn(x, params["stem"]["bn"], state["stem"]["bn"]))
-    return x.permute(0, 2, 3, 1), {"stem": state["stem"]}
+    x, bn_st = _bn(x, params["stem"]["bn"], state["stem"]["bn"], train)
+    return _relu6(x).permute(0, 2, 3, 1), {"stem": {"bn": bn_st}}
 
 
 def apply_mnv2_backbone(
@@ -210,10 +231,14 @@ def apply_mnv2_backbone(
     state: dict,
     x: torch.Tensor,
     cfg: MNV2Config,
+    *,
+    train: bool = False,
 ) -> tuple[torch.Tensor, dict]:
-    """Inverted-residual stack + head conv on NHWC stem activations, eval:
-    (B, Ho, Wo, C_stem) → (B, h, w, head_channels), plus the state."""
+    """Inverted-residual stack + head conv on NHWC stem activations:
+    (B, Ho, Wo, C_stem) → (B, h, w, head_channels), plus the new block and
+    head state."""
     x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    new_state: dict[str, Any] = {}
     bidx = 0
     cin = x.shape[1]
     for t, c, n, s in cfg.block_schedule():
@@ -221,23 +246,31 @@ def apply_mnv2_backbone(
             stride = s if i == 0 else 1
             blk = params[f"block{bidx}"]
             bst = state[f"block{bidx}"]
+            nst: dict[str, Any] = {}
             y = x
             if t != 1:
-                y = _relu6(_bn(_conv(y, blk["expand"]["w"]),
-                               blk["expand"]["bn"], bst["expand"]["bn"]))
+                y, st_ = _bn(_conv(y, blk["expand"]["w"]), blk["expand"]["bn"],
+                             bst["expand"]["bn"], train)
+                nst["expand"] = {"bn": st_}
+                y = _relu6(y)
             y = _conv(y, blk["dw"]["w"], stride=stride, groups=y.shape[1])
-            y = _relu6(_bn(y, blk["dw"]["bn"], bst["dw"]["bn"]))
-            y = _bn(_conv(y, blk["project"]["w"]), blk["project"]["bn"],
-                    bst["project"]["bn"])
+            y, st_ = _bn(y, blk["dw"]["bn"], bst["dw"]["bn"], train)
+            nst["dw"] = {"bn": st_}
+            y = _relu6(y)
+            y, st_ = _bn(_conv(y, blk["project"]["w"]), blk["project"]["bn"],
+                         bst["project"]["bn"], train)
+            nst["project"] = {"bn": st_}
             if stride == 1 and cin == c:
                 y = y + x
             x = y
+            new_state[f"block{bidx}"] = nst
             bidx += 1
             cin = c
 
-    x = _relu6(_bn(_conv(x, params["head"]["w"]), params["head"]["bn"],
-                   state["head"]["bn"]))
-    new_state = {k: v for k, v in state.items() if k != "stem"}
+    x, st_ = _bn(_conv(x, params["head"]["w"]), params["head"]["bn"],
+                 state["head"]["bn"], train)
+    new_state["head"] = {"bn": st_}
+    x = _relu6(x)
     return x.permute(0, 2, 3, 1), new_state
 
 
@@ -248,13 +281,16 @@ def apply_mnv2(
     cfg: MNV2Config,
     pixel_model: PixelModel | None = None,
     *,
+    train: bool = False,
     p2m_deploy: dict | None = None,
     p2m_impl: str | None = None,
 ) -> tuple[torch.Tensor, dict]:
-    """(B, H, W, 3) → (B, num_classes) logits, plus the state (eval)."""
+    """(B, H, W, 3) → (B, num_classes) logits, plus the new state (same
+    structure as ``state``)."""
     x, stem_state = apply_mnv2_stem(params, state, images, cfg, pixel_model,
-                                    p2m_deploy=p2m_deploy, p2m_impl=p2m_impl)
-    x, new_state = apply_mnv2_backbone(params, state, x, cfg)
+                                    train=train, p2m_deploy=p2m_deploy,
+                                    p2m_impl=p2m_impl)
+    x, new_state = apply_mnv2_backbone(params, state, x, cfg, train=train)
     x = x.mean(dim=(1, 2))
     logits = x @ params["fc"]["w"] + params["fc"]["b"]
     return logits, {**stem_state, **new_state}

@@ -1,5 +1,5 @@
-"""The port's CUDA kernel and its engine on a GPU: each test needs an
-NVIDIA card and skips without one.  This file imports no JAX, so it runs
+"""The port's CUDA kernels, its engine and its train step on a GPU: each
+test needs an NVIDIA card and skips without one.  This file imports no JAX, so it runs
 on a machine that has only PyTorch and the CUDA toolkit:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -7,7 +7,9 @@ on a machine that has only PyTorch and the CUDA toolkit:
 (``--noconftest``: the suite's conftest imports JAX.)  The kernel builds
 at first use.  Tolerances as in `tests/test_torch_p2m_conv.py`: raw and
 relu rtol 1e-5 / atol 1e-6; quant counts may differ by one in at most
-1e-4 of the elements, only at half counts.
+1e-4 of the elements, only at half counts.  The backward kernels (B3 dX,
+B4 dW) are held to their plain twins computed in float64 within 1e-4 of
+the largest |plain| (fp32 sums over up to 10^5 rows in another order).
 """
 import numpy as np
 import pytest
@@ -17,10 +19,12 @@ from repro_torch.configs.p2m_vww import SMOKE
 from repro_torch.core.p2m_conv import P2MConvConfig, apply_p2m_conv_deploy
 from repro_torch.core.pixel_model import default_pixel_model
 from repro_torch.data import SyntheticVWW
-from repro_torch.kernels.p2m_conv import conv
+from repro_torch.kernels.p2m_conv import backward, conv, ops
 from repro_torch.kernels.p2m_conv.ops import _coeff_tuple
-from repro_torch.models.mobilenetv2 import init_mnv2
+from repro_torch.models.mobilenetv2 import MNV2Config, init_mnv2
+from repro_torch.optim import sgd, step_decay
 from repro_torch.serving import VisionEngine, VisionRequest
+from repro_torch.train.vision import make_vww_train_step, vww_train_state
 
 pytestmark = pytest.mark.cuda
 
@@ -133,3 +137,119 @@ def test_engine_on_the_card_matches_the_plain_stem(cuda):
                            p2m_impl="plain").cpu().numpy()
     np.testing.assert_allclose(np.stack([r.probs for r in done]), plain,
                                rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------- backward kernels
+
+BWD_CASES = [  # (M, K, N, dw, dx)
+    (48, 75, 8, 3, 3),
+    (130, 33, 5, 3, 3),
+    (8, 1, 1, 3, 3),
+    (1000, 75, 13, 2, 1),
+    (4097, 27, 16, 3, 2),
+    (300, 75, 40, 4, 4),   # B4's pairs over two blocks along y
+    (70_001, 75, 8, 3, 3),  # many B4 blocks, M not a multiple of a tile
+]
+
+
+def _bwd_case(m, k, n, dw, dx, device, seed=0):
+    rng = np.random.default_rng(seed)
+    coeffs = tuple(tuple(float(v) for v in rng.uniform(-1, 1, dx))
+                   for _ in range(dw))
+    x = torch.from_numpy(rng.random((m, k), np.float32)).to(device)
+    w = torch.from_numpy(rng.uniform(-1, 1, (k, n)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
+    return g.to(device), w.to(device), x, coeffs
+
+
+def _assert_bwd_close(got, plain64):
+    err = float((got.double() - plain64).abs().max())
+    assert err <= 1e-4 * float(plain64.abs().max()), err
+
+
+@pytest.mark.parametrize("m,k,n,dw,dx", BWD_CASES)
+def test_backward_kernels_match_plain(cuda, m, k, n, dw, dx):
+    g, w, x, coeffs = _bwd_case(m, k, n, dw, dx, cuda)
+    wmix = conv.premix_weights(w, coeffs)
+    before = (backward.p2m_bwd_dx.launches, backward.p2m_bwd_dw.launches)
+    gx = backward.p2m_bwd_dx(g, wmix, x, coeffs)
+    gw = backward.p2m_bwd_dw(g, w, x, coeffs)
+    torch.cuda.synchronize()
+    assert (backward.p2m_bwd_dx.launches,
+            backward.p2m_bwd_dw.launches) == (before[0] + 1, before[1] + 1)
+    _assert_bwd_close(gx, backward.p2m_bwd_dx_plain(
+        g.double(), wmix.double(), x.double()))
+    _assert_bwd_close(gw, backward.p2m_bwd_dw_plain(
+        g.double(), w.double(), x.double(), coeffs))
+    # B4 sums its partials in a fixed order: the same bits every run
+    assert torch.equal(gw, backward.p2m_bwd_dw(g, w, x, coeffs))
+    assert torch.equal(gx, backward.p2m_bwd_dx(g, w, x, coeffs))
+
+
+def test_backward_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    g, w, x, coeffs = _bwd_case(64, 75, 8, 3, 3, cuda)
+    for fn in (backward.p2m_bwd_dx, backward.p2m_bwd_dw):
+        with pytest.raises(TypeError):
+            fn(g.double(), w, x, coeffs)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(g, w, x.t().contiguous().t(), coeffs)
+        with pytest.raises(ValueError, match="is on"):
+            fn(g, w, x.cpu(), coeffs)
+        with pytest.raises(ValueError, match="expected"):
+            fn(g, w[:5], x, coeffs)
+    five = tuple((0.1,) * 5 for _ in range(3))  # dx = 5
+    with pytest.raises(ValueError, match="dx=5"):
+        backward.p2m_bwd_dw(g, w, x, five)
+    with pytest.raises(ValueError, match="dx=5"):
+        backward.p2m_bwd_dx(g, w, x, five)
+    with pytest.raises(ValueError, match="dw=5"):
+        backward.p2m_bwd_dw(g, w, x, ((0.1,) * 3,) * 5)
+
+
+@pytest.mark.parametrize("b,h,w_dim,c,k,s",
+                         [(2, 20, 20, 3, 5, 5), (2, 13, 11, 3, 5, 3),
+                          (4, 60, 60, 3, 5, 5)])
+@pytest.mark.parametrize("mode", ["raw", "relu", "quant"])
+def test_function_gradients_on_the_card_match_plain_autograd(
+        cuda, b, h, w_dim, c, k, s, mode):
+    rng = np.random.default_rng(3)
+    model = default_pixel_model()
+    imgs = torch.from_numpy(rng.random((b, h, w_dim, c), np.float32))
+    wt = torch.from_numpy(rng.uniform(-1, 1, (k * k * c, 8)).astype(
+        np.float32) * (3.0 / (k * k * c)) ** 0.5)
+    sh = torch.from_numpy(rng.uniform(-0.2, 0.2, 8).astype(np.float32))
+    ct = torch.from_numpy(rng.standard_normal(
+        (b, (h - k) // s + 1, (w_dim - k) // s + 1, 8)).astype(np.float32))
+    ins = [t.to(cuda).requires_grad_(True) for t in (imgs, wt, sh)]
+    counts = (conv.p2m_conv_fused.launches, backward.p2m_bwd_dx.launches,
+              backward.p2m_bwd_dw.launches)
+    out = ops.p2m_conv(*ins, model, mode=mode, kernel=k, stride=s)
+    got = torch.autograd.grad((out * ct.to(cuda)).sum(), ins)
+    assert (conv.p2m_conv_fused.launches, backward.p2m_bwd_dx.launches,
+            backward.p2m_bwd_dw.launches) == tuple(c_ + 1 for c_ in counts)
+    ref_ins = [t.to(cuda).double().requires_grad_(True)
+               for t in (imgs, wt, sh)]
+    ref = conv.p2m_conv_plain(*ref_ins, kernel=k, stride=s, coeffs=COEFFS,
+                              mode="relu" if mode == "quant" else mode)
+    want = torch.autograd.grad((ref * ct.to(cuda)).sum(), ref_ins)
+    for a, r in zip(got, want):
+        _assert_bwd_close(a, r)
+
+
+def test_train_step_on_the_card_launches_every_kernel(cuda):
+    cfg = MNV2Config(variant="p2m", image_size=80, width=0.25,
+                     head_channels=32)
+    params, bn = init_mnv2(torch.Generator().manual_seed(0), cfg, device=cuda)
+    opt = sgd(step_decay(0.05, (10,)), momentum=0.9)
+    state = vww_train_state(params, bn, opt.init(params))
+    step = make_vww_train_step(cfg, opt)
+    data = SyntheticVWW(image_size=80, batch=8, seed=0)
+    for i in range(2):
+        counts = (conv.p2m_conv_fused.launches,
+                  backward.p2m_bwd_dx.launches, backward.p2m_bwd_dw.launches)
+        state, m = step(state, data.batch_at(i))
+        assert (conv.p2m_conv_fused.launches, backward.p2m_bwd_dx.launches,
+                backward.p2m_bwd_dw.launches) == tuple(c + 1 for c in counts)
+        assert np.isfinite(float(m["loss"]))
+    assert state["step"] == 2
+    assert state["params"]["stem"]["theta"].device.type == "cuda"

@@ -140,5 +140,13 @@ def test_p2m_stem_impls_agree_and_train_form_is_refused():
                                     p2m_impl="patches")
     assert plain.shape == (2, 6, 6, 8)
     torch.testing.assert_close(patches, plain, rtol=0, atol=tcfg.p2m.adc.v_lsb)
-    with pytest.raises(ValueError, match="deploy"):
-        tm.apply_mnv2_stem(tp, ts, x, tcfg)
+    # Without a deploy tree the stem runs its train form (here in eval,
+    # on the running statistics), as the reference's does; the CUDA conv
+    # is still refused for a CPU tensor.
+    ref, _ = jm.apply_mnv2_stem(params, state, jnp.asarray(x.numpy()), jcfg,
+                                train=False)
+    train_form, _ = tm.apply_mnv2_stem(tp, ts, x, tcfg)
+    np.testing.assert_allclose(train_form.numpy(), np.asarray(ref),
+                               rtol=TOL, atol=TOL)
+    with pytest.raises(ValueError, match="CUDA"):
+        tm.apply_mnv2_stem(tp, ts, x, tcfg, p2m_impl="cuda")
