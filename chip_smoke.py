@@ -13,6 +13,10 @@ no result:
 3. hold the forward conv kernel (B1) against its plain PyTorch version on
    the card, TF32 off, at the serving shapes and at others (general
    stride, ragged N and rows), in every mode;
+3b. hold the gated stem kernel (B5, the same source as B1) against B1
+   followed by `torch.where`, bit for bit, and against its plain version,
+   over masks (all re-run, all skip, mixed, one slot), at the stream
+   shape, at s < k and at Ho = 1, in every mode;
 4. hold the backward kernels (B3 dX, B4 dW) against their plain versions
    in float64 over conv geometries (s < k, ragged M and N, dx = 1..4)
    and at the training shape;
@@ -22,6 +26,14 @@ no result:
    requests with staggered arrivals through `drive()`; every request
    completes in order, B1 launched once per engine launch, and each
    batch's probabilities equal the same forward with the plain stem;
+5b. the streaming path: `StreamEngine` on `CONFIG` with 4 slots, a
+   detection head from a seed, six hold-2 `SyntheticVideo` streams of
+   12, 8, 12, 6, 12 and 10 frames at 560² (the 6-frame one noisy), on the
+   gated stem (the default on the card), on the where stem and dense
+   (``threshold=None``); gated == where and gated == dense bit for bit,
+   the measured skip rate and bandwidth reduction exact, B5 once a tick
+   and no B1 on the gated engine, B1 once a tick on the where engine; a
+   NaN cache forces its slot to re-run and drops its gate to dense;
 6. the training path: 6 steps of `make_vww_train_step` on `CONFIG` at
    batch 32 with the paper's `sgd(step_decay(...), momentum=0.9)`; every
    loss finite, each step launches B1, B3 and B4 exactly once;
@@ -35,9 +47,11 @@ no result:
    `quantize_deploy`) and served: 8 requests through `VisionEngine`;
 9. times on the card (CUDA events, median of 25, L2 flushed between
    runs) of each kernel, its plain version and one library call beside
-   the least time the card could take; the engine's time per launch and
-   its parts; the train step's time and its parts;
-10. one JSON line ``{"kernels": [...]}``;
+   the least time the card could take (B5 at skip shares 0, 1/2, 1);
+   the vision engine's time per launch and its parts; the stream
+   engines' time per tick and its parts; the train step's time and its
+   parts;
+10. one JSON line ``{"kernels": [...]}`` (B1, B3, B4, B5);
 11. the card's name and power limit as nvidia-smi gives them, then the
     last line ``{"ok": true, "device": {...}}``.
 """
@@ -562,6 +576,356 @@ def time_train_step(torch, train, flush):
     print(f"[9] train step, whole: {train['step_ms']:.3f} ms (host clock)")
 
 
+STREAM_LENGTHS = (12, 8, 12, 6, 12, 10)
+NOISY_STREAM = 3  # the one stream with per-frame noise: it never skips
+
+
+def check_gated_kernel(torch, np, dev, imgs, wrows, shift, rand_case, adc):
+    """Phase 3b: the gated stem (B5) against B1 + `torch.where`, bit for
+    bit, and against its plain twin (raw, relu within 1e-5; quant by the
+    count rule), over masks (all re-run, all skip, mixed, one slot),
+    geometries (the stream shape, s < k, Ho = 1) and modes.  Returns the
+    largest raw/relu difference from the plain twin at the stream shape."""
+    from repro_torch.kernels.p2m_conv import conv, gated
+
+    masks = {"all rerun": [1, 1, 1, 1], "all skip": [0, 0, 0, 0],
+             "mixed": [1, 0, 0, 1], "one slot": [0, 0, 1, 0]}
+    gen = torch.Generator().manual_seed(SEED + 3)
+    geoms = [("stream k5 s5", (imgs, wrows, shift), 5, 5),
+             ("k5 s3", rand_case(4, 64, 64, 3, 5, 8), 5, 3),
+             ("Ho=1 k5 s5", rand_case(4, 5, 5, 3, 5, 8), 5, 5)]
+    stream_err = 0.0
+    for name, (x, wr, sh), kk, ss in geoms:
+        b = x.shape[0]
+        ho = (x.shape[1] - kk) // ss + 1
+        wo = (x.shape[2] - kk) // ss + 1
+        cached = torch.rand((b, ho, wo, wr.shape[2]), generator=gen).to(dev)
+        for mode in ("raw", "relu", "quant"):
+            kw = dict(kernel=kk, stride=ss, mode=mode, v_lsb=adc.v_lsb,
+                      max_count=adc.max_count)
+            dense = conv.p2m_conv_fused(x, wr, sh, **kw)
+            _, raw = conv.p2m_conv_premixed_plain(
+                x, wr, torch.zeros_like(sh), want_raw=True,
+                **{**kw, "mode": "raw"})
+            line = f"[3b] {name:13s} {mode:5s} {tuple(dense.shape)}:"
+            for mname, mask in masks.items():
+                rerun = torch.tensor(mask, dtype=torch.bool, device=dev)
+                got = gated.p2m_conv_fused_gated(x, wr, sh, cached, rerun,
+                                                 **kw)
+                torch.cuda.synchronize()
+                want = torch.where(rerun[:, None, None, None], dense, cached)
+                check(torch.equal(got, want), f"{name} {mode} {mname}: B5 "
+                      "differs from B1 + where")
+                plain = gated.p2m_conv_gated_plain(x, wr, sh, cached, rerun,
+                                                   **kw)
+                if mode == "quant":
+                    rep = conv.quant_disagreement(got, plain, raw, adc.v_lsb)
+                    check(rep["max_count_diff"] <= 1 and rep["share"] <= 1e-4
+                          and rep["all_near_half"],
+                          f"{name} {mname}: quant counts disagree: {rep}")
+                    line += f" {mname} ={rep['n_diff']} counts"
+                else:
+                    err = float((got - plain).abs().max())
+                    check(err <= RAW_TOL, f"{name} {mode} {mname}: B5 vs "
+                          f"plain {err}")
+                    if name.startswith("stream"):
+                        stream_err = max(stream_err, err)
+                    line += f" {mname} {err:.1e}"
+            print(line + " (bitwise = B1 + where in every mask)")
+    return stream_err
+
+
+def stream_path(torch, np, dev, params, bn):
+    """Phase 5b: the streaming path at full width.  ``StreamEngine`` on
+    `CONFIG` with 4 slots (`STREAM_MAX_SLOTS`), the port's detection head
+    from a seed, six hold-2 `SyntheticVideo` streams of mixed lengths at
+    560² (one with per-frame noise), through `drive()`: the gated engine
+    (the default on the card), the where engine and the dense engine
+    (``threshold=None``).  Returns what the timings read."""
+    from repro_torch.configs.p2m_vww import CONFIG, STREAM_MAX_SLOTS
+    from repro_torch.core.bandwidth import frame_output_bits
+    from repro_torch.kernels.p2m_conv import conv, gated
+    from repro_torch.models.mobilenetv2 import head_out_channels
+    from repro_torch.serving import drive
+    from repro_torch.video import (
+        DeltaGateConfig,
+        DetectConfig,
+        StreamEngine,
+        StreamRequest,
+        SyntheticVideo,
+        init_detect_head,
+    )
+
+    t0 = time.perf_counter()
+    frames = [SyntheticVideo(image_size=CONFIG.image_size, n_frames=n,
+                             hold=2, seed=SEED + i,
+                             noise=0.02 if i == NOISY_STREAM else 0.0).frames()
+              for i, n in enumerate(STREAM_LENGTHS)]
+    setup_s = time.perf_counter() - t0
+    det = init_detect_head(torch.Generator().manual_seed(SEED + 1),
+                           head_out_channels(CONFIG), DetectConfig(),
+                           device=dev)
+
+    def requests():
+        return [StreamRequest(uid=i, frames=f) for i, f in enumerate(frames)]
+
+    def run(threshold=0.0, **kw):
+        eng = StreamEngine(params, bn, CONFIG, det,
+                           gate=DeltaGateConfig(threshold=threshold),
+                           device=dev, **kw)
+        torch.cuda.synchronize()
+        gated.p2m_conv_fused_gated.launches = 0
+        conv.p2m_conv_fused.launches = 0
+        t0 = time.perf_counter()
+        drive(eng, requests(), on_undrained="raise")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {"p2m_conv_fused_gated": gated.p2m_conv_fused_gated.launches,
+                  "p2m_conv_fused": conv.p2m_conv_fused.launches}
+        done = eng.completed
+        check(sorted(r.uid for r in done) == list(range(len(frames)))
+              and not eng.failed and not eng.evicted,
+              f"{eng.stem_path}: completion {[r.uid for r in done]}, failed "
+              f"{len(eng.failed)}, evicted {len(eng.evicted)}")
+        for r in done:
+            for boxes, scores in r.frame_outputs:
+                check(boxes.shape == (eng.det_cfg.max_dets, 4)
+                      and scores.shape == (eng.det_cfg.max_dets,)
+                      and bool(np.isfinite(boxes).all())
+                      and bool(np.isfinite(scores).all()),
+                      f"stream {r.uid}: outputs not finite or misshapen")
+        print(f"[5b] {eng.stem_path:5s} engine, threshold {threshold}: "
+              f"{len(done)} streams, {sum(r.frames_done for r in done)} "
+              f"frames in {eng.stats['launches']} ticks ({seconds:.2f} s); "
+              f"launches {counts}; summary {eng.stream_summary()}")
+        return eng, done, counts
+
+    def same_outputs(a, b):
+        return all(np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1])
+                   for ra, rb in zip(a, b)
+                   for x, y in zip(ra.frame_outputs, rb.frame_outputs))
+
+    def ledgers(done):
+        return [(r.uid, r.served_tick, r.finished_tick, r.frames_done,
+                 r.ledger.summary()) for r in done]
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    g_eng, g_done, g_counts = run()  # the main path: stem_path="auto"
+    w_eng, w_done, w_counts = run(stem_path="where")
+    d_eng, d_done, _ = run(threshold=None)
+    check(g_eng.stem_path == "gated" and d_eng.stem_path == "gated",
+          f"auto picked {g_eng.stem_path} on the card")
+    ticks = g_eng.stats["launches"]
+    check(g_counts == {"p2m_conv_fused_gated": ticks, "p2m_conv_fused": 0},
+          f"gated engine launches {g_counts} in {ticks} ticks")
+    check(w_counts == {"p2m_conv_fused_gated": 0,
+                       "p2m_conv_fused": w_eng.stats["launches"]},
+          f"where engine launches {w_counts}")
+    check(ledgers(g_done) == ledgers(w_done),
+          "gated and where engines' ledgers differ")
+    check(same_outputs(g_done, w_done),
+          "gated and where engines' boxes or scores differ")
+    check(same_outputs(g_done, d_done),
+          "gated (threshold 0) and dense engines' boxes or scores differ")
+    check(all(r.skip_count == 0 for r in d_done), "the dense engine skipped")
+    for r in g_done:
+        want = 0.0 if r.uid == NOISY_STREAM else 0.5
+        check(r.skip_rate == want, f"stream {r.uid}: skip rate "
+              f"{r.skip_rate}, not {want}")
+    frames_n = sum(STREAM_LENGTHS)
+    skips = sum(n // 2 for i, n in enumerate(STREAM_LENGTHS)
+                if i != NOISY_STREAM)
+    dense_bits = frame_output_bits(g_eng.geom)
+    bits = (frames_n - skips) * dense_bits + frames_n
+    summary = g_eng.stream_summary()
+    check(summary["frames"] == frames_n
+          and summary["stem_skip_rate"] == skips / frames_n
+          and summary["stem_flops_skipped_ratio"] == skips / frames_n
+          and summary["measured_reduction_vs_dense"]
+          == dense_bits / (bits / frames_n),
+          f"stream summary {summary}")
+    print(f"[5b] gated == where (ledgers, boxes, scores: bitwise), gated == "
+          f"dense at threshold 0 (bitwise); skip rate {skips}/{frames_n} = "
+          f"{skips / frames_n:.4f} (each noiseless stream 0.5, the noisy "
+          f"one 0); measured reduction vs dense "
+          f"{summary['measured_reduction_vs_dense']:.6f}; B5 launched "
+          f"{g_counts['p2m_conv_fused_gated']} times in {ticks} ticks, B1 "
+          f"0 times; the where engine launched B1 "
+          f"{w_counts['p2m_conv_fused']} times; frames made in "
+          f"{setup_s:.2f} s")
+
+    # A corrupted cache: slot 0's stem becomes NaN after its first frame.
+    eng = StreamEngine(params, bn, CONFIG, det, device=dev, max_streams=2)
+    for r in requests()[:2]:
+        eng.submit(r)
+    eng.step()
+    eng._cached_stem[0] = float("nan")
+    eng.run(on_undrained="raise")
+    a, b = eng.completed
+    check(a.uid == 1 and b.uid == 0, f"order {[a.uid, b.uid]}")
+    check(b.skip_count == 0 and eng._gates[0].disabled
+          and eng.health()["gate_faults"] == 1 and a.skip_count == 4,
+          f"NaN cache: skips {b.skip_count}/{a.skip_count}, health "
+          f"{eng.health()}")
+    check(all(bool(np.isfinite(s).all()) for r in (a, b)
+              for _, s in r.frame_outputs), "NaN reached the outputs")
+    print(f"[5b] NaN cache in slot 0: the stream re-ran every frame "
+          f"(skips 0 of {b.frames_done}), its gate dropped to dense, "
+          f"gate_faults {eng.health()['gate_faults']}; slot 1 kept "
+          f"skipping ({a.skip_count} of {a.frames_done})")
+    torch.backends.cudnn.deterministic = False
+    return {"gated": g_eng, "where": w_eng, "frames": frames,
+            "requests": requests, "launches": g_counts,
+            "where_launches": w_counts, "ticks": ticks,
+            "slots": STREAM_MAX_SLOTS}
+
+
+def time_stream(torch, np, dev, stream, flush, adc):
+    """Phase 9, stream part: B5 alone at skip shares 0, 1/2 and 1 beside
+    its bound, its plain twin and a library yardstick; the engines' time
+    per tick, warm; and the parts of a tick.  Returns B5's row of the
+    kernels line, without launches and error."""
+    from repro_torch.configs.p2m_vww import CONFIG
+    from repro_torch.kernels.p2m_conv import conv, gated
+    from repro_torch.models.mobilenetv2 import apply_mnv2_backbone
+    from repro_torch.serving import drive
+    from repro_torch.video.delta import frame_delta
+    from repro_torch.video.detect import (
+        apply_detect_head,
+        decode_detections,
+        det_grid,
+    )
+
+    eng = stream["gated"]
+    b = stream["slots"]
+    cfg = CONFIG.p2m
+    k, s = cfg.kernel, cfg.stride
+    size = CONFIG.image_size
+    dep = eng._deploy
+    wrows, shift = dep["wrows"], dep["shift"]
+    n = wrows.shape[2]
+    ho = cfg.out_spatial(size)
+    frames = stream["frames"]
+    images = torch.from_numpy(np.stack([f[0] for f in frames[:b]])).to(dev)
+    cached = torch.rand((b, ho, ho, n), generator=torch.Generator()
+                        .manual_seed(SEED + 4)).to(dev)
+    qkw = dict(kernel=k, stride=s, mode="quant", v_lsb=adc.v_lsb,
+               max_count=adc.max_count)
+    counted = (gated.p2m_conv_fused_gated.launches,
+               conv.p2m_conv_fused.launches)
+    img_bytes = 4 * size * size * 3
+    out_bytes = 4 * ho * ho * n
+    rows = {}
+    # The kernel alone takes its int32 mask; the engine hands the wrapper a
+    # bool mask, which costs one more (conversion) launch, timed apart.
+    for share, mask in (("0", [1] * b), ("0.5", [1, 0] * (b // 2)),
+                        ("1", [0] * b)):
+        rerun = torch.tensor(mask, dtype=torch.int32, device=dev)
+        n_run = sum(mask)
+        nbytes = (n_run * img_bytes + (b - n_run) * out_bytes
+                  + b * out_bytes + 4 * (wrows.numel() + shift.numel() + b))
+        flops = 2 * n_run * ho * ho * k * wrows.shape[1] * n
+        b_ms, b_by = bound(nbytes, flops)
+        rows[share] = {
+            "ms": cuda_ms(torch, lambda: gated.p2m_conv_fused_gated(
+                images, wrows, shift, cached, rerun, **qkw), flush),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "flops": flops}
+        if share == "0.5":
+            half = rerun.to(torch.bool)
+    rows["0.5"]["plain_ms"] = cuda_ms(torch, lambda: gated.p2m_conv_gated_plain(
+        images, wrows, shift, cached, half, **qkw), flush)
+    bool_ms = cuda_ms(torch, lambda: gated.p2m_conv_fused_gated(
+        images, wrows, shift, cached, half, **qkw), flush)
+    # Yardstick: cuDNN's conv over the power stack (the raw accumulation,
+    # every slot) and the select.
+    c = cfg.in_channels
+    dx = wrows.shape[1] // (k * c)
+    xs = images.permute(0, 3, 1, 2)
+    stack = torch.cat([xs, xs * xs, xs * xs * xs][:dx], dim=1).contiguous()
+    wlib = (wrows.reshape(k, dx, k, c, -1).permute(4, 1, 3, 0, 2)
+            .reshape(-1, dx * c, k, k).contiguous())
+    cached_nchw = cached.permute(0, 3, 1, 2)
+    rows["0.5"]["library_ms"] = cuda_ms(torch, lambda: torch.where(
+        half[:, None, None, None],
+        torch.nn.functional.conv2d(stack, wlib, stride=s), cached_nchw),
+        flush)
+    for share, row in rows.items():
+        extra = (f", with a bool mask (+ its conversion) {bool_ms:.4f} ms, "
+                 f"plain {row['plain_ms']:.4f} ms, library conv2d + where "
+                 f"{row['library_ms']:.4f} ms" if share == "0.5" else "")
+        print(f"[9] p2m_conv_fused_gated at ({b},{size},{size},3) skip share "
+              f"{share}: kernel {row['ms']:.4f} ms{extra}; bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
+              f"({row['bytes']} bytes, {row['flops']} FLOP)")
+
+    # The engines per tick, warm: the same six streams again, in turns
+    # (gated, where, where, gated).
+    per_tick = {"gated": [], "where": []}
+    for path in ("gated", "where", "where", "gated"):
+        e = stream[path]
+        before_l, before_us = e.stats["launches"], e.stats["wall_us"]
+        drive(e, stream["requests"](), on_undrained="raise")
+        per_tick[path].append((e.stats["wall_us"] - before_us)
+                              / (e.stats["launches"] - before_l) / 1e3)
+    print(f"[9] stream engine per tick (4 slots, warm, host clock, "
+          f"{stream['ticks']} ticks a run, runs in turns): gated "
+          + " and ".join(f"{v:.3f}" for v in per_tick["gated"]) + " ms, where "
+          + " and ".join(f"{v:.3f}" for v in per_tick["where"]) + " ms")
+
+    # Where a tick goes, each part timed alone as `_launch` runs it.
+    def assemble():
+        x = np.zeros((b, size, size, 3), np.float32)
+        for i in range(b):
+            x[i] = frames[i][0]
+        return torch.from_numpy(x).to(dev)
+
+    parts = {"host: frames assembled in numpy, pageable copy to the card":
+             wall_ms(torch, assemble, flush),
+             "host: delta-gate decisions (mean |frame - reference| a slot)":
+             wall_ms(torch, lambda: [frame_delta(frames[i][0], frames[i][1])
+                                     for i in range(b)], flush)}
+    rerun = torch.tensor([1, 0] * (b // 2), dtype=torch.bool, device=dev)
+    fwd = eng.forward
+    with torch.no_grad():
+        stem = gated.p2m_conv_fused_gated(images, wrows, shift, cached,
+                                          rerun, **qkw)
+        feats, _ = apply_mnv2_backbone(eng._params, eng._bn, stem, CONFIG)
+        grid = det_grid(ho)
+        parts["stem, gated (B5 + the bool mask's conversion, skip share "
+              "1/2)"] = bool_ms
+        parts["stem, where (B1 + torch.where)"] = cuda_ms(
+            torch, lambda: torch.where(
+                rerun[:, None, None, None],
+                conv.p2m_conv_fused(images, wrows, shift, **qkw), cached),
+            flush)
+        parts["backbone"] = cuda_ms(torch, lambda: apply_mnv2_backbone(
+            eng._params, eng._bn, stem, CONFIG), flush)
+        stem8 = torch.cat([stem, stem])
+        parts["(backbone on 8 such stems, the vision engine's batch)"] = \
+            cuda_ms(torch, lambda: apply_mnv2_backbone(
+                eng._params, eng._bn, stem8, CONFIG), flush)
+        parts["detection head + decode"] = cuda_ms(
+            torch, lambda: decode_detections(apply_detect_head(
+                eng._det, feats, grid), eng.det_cfg.max_dets), flush)
+        parts["forward, gated (device)"] = cuda_ms(
+            torch, lambda: fwd(images, cached, rerun), flush)
+        parts["forward, gated, with the results to the host (host clock)"] = \
+            wall_ms(torch, lambda: [t.cpu() for t in fwd(images, cached,
+                                                          rerun)[1:]], flush)
+    gated.p2m_conv_fused_gated.launches, conv.p2m_conv_fused.launches = counted
+    for name, ms in parts.items():
+        print(f"[9] stream tick part: {name}: {ms:.3f} ms")
+    row = rows["0.5"]
+    return {"ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "ms_by_skip_share": {k: v["ms"] for k, v in rows.items()},
+            "bound_ms_by_skip_share": {k: v["bound_ms"]
+                                       for k, v in rows.items()}}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -681,6 +1045,10 @@ def main() -> int:
             paper_err = max(paper_err, raw_err)
         print(line)
 
+    gated_err = check_gated_kernel(torch, np, dev,
+                                   paper_imgs[:4].contiguous(), wrows, shift,
+                                   rand_case, adc)
+
     # ------------------------------------------------------- phase 4
     bwd_err, bwd = check_backward_kernels(torch, np, dev)
 
@@ -737,6 +1105,8 @@ def main() -> int:
           f"stem vs patches reference: {rep['n_diff']} counts differ")
     check(rep["max_count_diff"] <= 1 and rep["share"] <= 1e-4
           and rep["all_near_half"], f"stem vs patches: {rep}")
+
+    stream = stream_path(torch, np, dev, params, bn)
 
     # ------------------------------------------------------- phase 6
     train = train_path(torch, np, dev)
@@ -824,6 +1194,7 @@ def main() -> int:
           f"launch gaps included); sum "
           f"{host_ms + stem_ms + backbone_ms:.3f} of {engine_ms:.3f} ms")
 
+    gated_row = time_stream(torch, np, dev, stream, flush, adc)
     bwd_rows = time_backward_kernels(torch, bwd, flush)
     time_train_step(torch, train, flush)
 
@@ -833,10 +1204,13 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/p2m_conv/csrc/p2m_conv.cu",
         "replaces": "src/repro/kernels/p2m_conv/conv.py:466",
-        # B1 runs on both paths: the serving run's and the training run's
-        "launches": launches + train["launches"]["p2m_conv_fused"],
+        # B1 runs on three paths: the serving run's, the training run's and
+        # the stream run's on the where path
+        "launches": (launches + train["launches"]["p2m_conv_fused"]
+                     + stream["where_launches"]["p2m_conv_fused"]),
         "launches_by_path": {
-            "serve": launches, "train": train["launches"]["p2m_conv_fused"]},
+            "serve": launches, "train": train["launches"]["p2m_conv_fused"],
+            "stream": stream["where_launches"]["p2m_conv_fused"]},
         "max_abs_err": paper_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -857,6 +1231,18 @@ def main() -> int:
             "max_abs_err": bwd_err[name],
             **bwd_rows[name],
         })
+    kernels.append({
+        "name": "p2m_conv_fused_gated",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/p2m_conv/csrc/p2m_conv.cu",
+        "replaces": "src/repro/kernels/p2m_conv/gated.py:221",
+        # the gated stem runs on the stream path (its default on the card)
+        "launches": stream["launches"]["p2m_conv_fused_gated"],
+        "launches_by_path": {
+            "stream": stream["launches"]["p2m_conv_fused_gated"]},
+        "max_abs_err": gated_err,
+        **gated_row,
+    })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

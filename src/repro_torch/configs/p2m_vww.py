@@ -25,3 +25,12 @@ TRAIN_BATCH = 32
 SERVE_MAX_BATCH = 8
 SERVE_MAX_QUEUE = 64
 SERVE_QUANT_BITS = 8  # PTQ width for the deploy-folded stem (Table 1 N_b)
+
+# Streaming-video detection defaults (video/engine.py).  A stream holds a
+# slot for its whole lifetime, so the slot table is narrower than the
+# single-shot microbatch; the queue holds a couple of generations of
+# waiting streams.  Delta threshold 0.0 = lossless event gating (skip
+# only bit-identical frames: gated output equals dense).
+STREAM_MAX_SLOTS = 4
+STREAM_MAX_QUEUE = 8
+STREAM_DELTA_THRESHOLD = 0.0

@@ -190,6 +190,10 @@ def _library():
     lib.p2m_conv_forward.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
         + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    lib.p2m_conv_gated_forward.restype = ctypes.c_int
+    lib.p2m_conv_gated_forward.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     lib.p2m_conv_max_dx.restype = ctypes.c_int
     lib.p2m_conv_max_dx.argtypes = []
     return lib
@@ -212,12 +216,16 @@ def _n_tile(n: int, rows: int) -> int:
     return tile
 
 
-def _launch_cuda(images, wrows, shift, *, kernel, stride, mode, v_lsb,
-                 max_count, want_raw):
+def _check_launch(tensors: dict, *, kernel: int, stride: int, mode: str):
+    """Validate what the CUDA kernels take: ``tensors`` (name → tensor,
+    ``images`` and ``wrows`` among them) all float32, contiguous, on the
+    images' CUDA device; a known mode; a geometry and a dx the kernel
+    takes.  Returns (lib, (B, H, W, C), N, dx, n_tile)."""
+    images, wrows = tensors["images"], tensors["wrows"]
     if not images.is_cuda:
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got images "
                          f"on {images.device}")
-    for name, t in (("images", images), ("wrows", wrows), ("shift", shift)):
+    for name, t in tensors.items():
         if t.device != images.device:
             raise ValueError(f"{name} is on {t.device}, images on "
                              f"{images.device}")
@@ -237,12 +245,22 @@ def _launch_cuda(images, wrows, shift, *, kernel, stride, mode, v_lsb,
                          f"for k={k}, C={c}")
     n = wrows.shape[2]
     dx = wrows.shape[1] // kc
-    if shift.shape != (n,):
-        raise ValueError(f"shift {tuple(shift.shape)} is not ({n},)")
+    if tensors["shift"].shape != (n,):
+        raise ValueError(f"shift {tuple(tensors['shift'].shape)} is not "
+                         f"({n},)")
     lib = _library()
     if not 1 <= dx <= lib.p2m_conv_max_dx():
         raise ValueError(f"dx={dx} outside the kernel's compiled range "
                          f"1..{lib.p2m_conv_max_dx()}")
+    return lib, (b, h, w_dim, c), n, dx, _n_tile(n, k * dx * kc)
+
+
+def _launch_cuda(images, wrows, shift, *, kernel, stride, mode, v_lsb,
+                 max_count, want_raw):
+    lib, (b, h, w_dim, c), n, dx, n_tile = _check_launch(
+        {"images": images, "wrows": wrows, "shift": shift}, kernel=kernel,
+        stride=stride, mode=mode)
+    k, s = kernel, stride
     ho = conv_out_spatial(h, k, s)
     wo = conv_out_spatial(w_dim, k, s)
     out = torch.empty((b, ho, wo, n), dtype=torch.float32,
@@ -253,8 +271,8 @@ def _launch_cuda(images, wrows, shift, *, kernel, stride, mode, v_lsb,
         err = lib.p2m_conv_forward(
             images.data_ptr(), wrows.data_ptr(), shift.data_ptr(),
             out.data_ptr(), raw.data_ptr() if want_raw else None,
-            b, h, w_dim, c, k, s, n, dx, _n_tile(n, k * dx * kc),
-            _MODES[mode], v_lsb, max_count, max_count * v_lsb, stream)
+            b, h, w_dim, c, k, s, n, dx, n_tile, _MODES[mode], v_lsb,
+            max_count, max_count * v_lsb, stream)
     if err != 0:
         raise RuntimeError(f"p2m_conv CUDA launch failed: cudaError {err}")
     p2m_conv_fused.launches += 1

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels, its engine and its train step on a GPU: each
+"""The port's CUDA kernels, its engines and its train step on a GPU: each
 test needs an NVIDIA card and skips without one.  This file imports no JAX, so it runs
 on a machine that has only PyTorch and the CUDA toolkit:
 
@@ -10,6 +10,8 @@ relu rtol 1e-5 / atol 1e-6; quant counts may differ by one in at most
 1e-4 of the elements, only at half counts.  The backward kernels (B3 dX,
 B4 dW) are held to their plain twins computed in float64 within 1e-4 of
 the largest |plain| (fp32 sums over up to 10^5 rows in another order).
+The gated stem (B5) equals B1 followed by ``torch.where`` bit for bit,
+and its plain twin to B1's tolerances.
 """
 import numpy as np
 import pytest
@@ -19,12 +21,23 @@ from repro_torch.configs.p2m_vww import SMOKE
 from repro_torch.core.p2m_conv import P2MConvConfig, apply_p2m_conv_deploy
 from repro_torch.core.pixel_model import default_pixel_model
 from repro_torch.data import SyntheticVWW
-from repro_torch.kernels.p2m_conv import backward, conv, ops
+from repro_torch.kernels.p2m_conv import backward, conv, gated, ops
 from repro_torch.kernels.p2m_conv.ops import _coeff_tuple
-from repro_torch.models.mobilenetv2 import MNV2Config, init_mnv2
+from repro_torch.models.mobilenetv2 import (
+    MNV2Config,
+    head_out_channels,
+    init_mnv2,
+)
 from repro_torch.optim import sgd, step_decay
 from repro_torch.serving import VisionEngine, VisionRequest
 from repro_torch.train.vision import make_vww_train_step, vww_train_state
+from repro_torch.video import (
+    DetectConfig,
+    StreamEngine,
+    StreamRequest,
+    SyntheticVideo,
+    init_detect_head,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -253,3 +266,116 @@ def test_train_step_on_the_card_launches_every_kernel(cuda):
         assert np.isfinite(float(m["loss"]))
     assert state["step"] == 2
     assert state["params"]["stem"]["theta"].device.type == "cuda"
+
+
+# ------------------------------------------------------- gated stem (B5)
+
+GATED_GEOMETRIES = [  # (B, H, W, C, k, s, N)
+    (4, 60, 60, 3, 5, 5, 8),
+    (3, 14, 11, 2, 3, 2, 8),
+    (4, 13, 13, 3, 5, 3, 5),
+    (3, 4, 4, 2, 4, 4, 8),  # Ho = Wo = 1
+    (2, 40, 40, 3, 5, 5, 300),  # W̃ split over several blocks of N
+]
+GATED_MASKS = {"all rerun": [1, 1, 1, 1], "all skip": [0, 0, 0, 0],
+               "mixed": [1, 0, 0, 1], "one slot": [0, 0, 1, 0]}
+
+
+@pytest.mark.parametrize("b,h,w,c,k,s,n", GATED_GEOMETRIES)
+@pytest.mark.parametrize("mode", ["raw", "relu", "quant"])
+def test_gated_kernel_is_b1_then_where_bit_for_bit(cuda, b, h, w, c, k, s,
+                                                   n, mode):
+    x, wrows, shift = _data(b, h, w, c, k, n, cuda)
+    ho, wo = (h - k) // s + 1, (w - k) // s + 1
+    cached = torch.rand((b, ho, wo, n), generator=torch.Generator()
+                        .manual_seed(1)).to(cuda)
+    kw = dict(kernel=k, stride=s, mode=mode)
+    dense = conv.p2m_conv_fused(x, wrows, shift, **kw)
+    for name, mask in GATED_MASKS.items():
+        rerun = torch.tensor(mask[:b], dtype=torch.bool, device=cuda)
+        before = gated.p2m_conv_fused_gated.launches
+        got = gated.p2m_conv_fused_gated(x, wrows, shift, cached, rerun, **kw)
+        torch.cuda.synchronize()
+        assert gated.p2m_conv_fused_gated.launches == before + 1
+        want = torch.where(rerun[:, None, None, None], dense, cached)
+        assert torch.equal(got, want), name
+        plain = gated.p2m_conv_gated_plain(x, wrows, shift, cached, rerun,
+                                           **kw)
+        if mode == "quant":
+            _, raw = conv.p2m_conv_premixed_plain(
+                x, wrows, torch.zeros_like(shift), mode="raw",
+                want_raw=True, kernel=k, stride=s)
+            _assert_quant_close(got, plain, raw)
+        else:
+            torch.testing.assert_close(got, plain, rtol=RTOL, atol=ATOL)
+
+
+def test_gated_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x, wrows, shift = _data(2, 10, 10, 3, 5, 8, cuda)
+    cached = torch.zeros((2, 2, 2, 8), device=cuda)
+    rerun = torch.ones(2, dtype=torch.bool, device=cuda)
+    kw = dict(kernel=5, stride=5)
+    with pytest.raises(TypeError):
+        gated.p2m_conv_fused_gated(x, wrows, shift, cached.double(), rerun,
+                                   **kw)
+    with pytest.raises(TypeError, match="rerun"):
+        gated.p2m_conv_fused_gated(x, wrows, shift, cached, rerun.float(),
+                                   **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        gated.p2m_conv_fused_gated(x, wrows, shift,
+                                   cached.transpose(1, 2), rerun, **kw)
+    with pytest.raises(ValueError, match="is on"):
+        gated.p2m_conv_fused_gated(x, wrows, shift, cached.cpu(), rerun,
+                                   **kw)
+    with pytest.raises(ValueError, match="is on"):
+        gated.p2m_conv_fused_gated(x, wrows, shift, cached, rerun.cpu(),
+                                   **kw)
+    with pytest.raises(ValueError, match="cached"):
+        gated.p2m_conv_fused_gated(x, wrows, shift, cached[:, :1], rerun,
+                                   **kw)
+    with pytest.raises(ValueError, match="rerun"):
+        gated.p2m_conv_fused_gated(x, wrows, shift, cached, rerun[:1], **kw)
+    wide = torch.zeros((5, 15 * 5, 8), device=cuda)  # dx = 5
+    with pytest.raises(ValueError, match="dx=5"):
+        gated.p2m_conv_fused_gated(x, wide, shift, cached, rerun, **kw)
+
+
+def test_gated_stream_on_the_card(cuda):
+    """A short stream through the engine on the card: the gated path by
+    default, one B5 launch a tick and no B1; the same boxes and scores as
+    the where path, bit for bit; half the hold-2 frames skipped."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        params, bn = init_mnv2(torch.Generator().manual_seed(0), SMOKE,
+                               device=cuda)
+        det = init_detect_head(torch.Generator().manual_seed(1),
+                               head_out_channels(SMOKE), DetectConfig(),
+                               device=cuda)
+        frames = [SyntheticVideo(image_size=SMOKE.image_size, n_frames=n,
+                                 hold=2, seed=i).frames()
+                  for i, n in enumerate([6, 4, 6])]
+        runs = {}
+        for path in ("auto", "where"):
+            eng = StreamEngine(params, bn, SMOKE, det, max_streams=2,
+                               stem_path=path)
+            counts = (gated.p2m_conv_fused_gated.launches,
+                      conv.p2m_conv_fused.launches)
+            done = eng.run([StreamRequest(uid=i, frames=f)
+                            for i, f in enumerate(frames)],
+                           on_undrained="raise")
+            runs[eng.stem_path] = (eng, done, (
+                gated.p2m_conv_fused_gated.launches - counts[0],
+                conv.p2m_conv_fused.launches - counts[1]))
+        eng, done, (n_b5, n_b1) = runs["gated"]
+        assert eng.device.type == "cuda"
+        assert (n_b5, n_b1) == (eng.stats["launches"], 0)
+        assert eng.stream_summary()["stem_flops_skipped_ratio"] == 0.5
+        w_eng, w_done, (w_b5, w_b1) = runs["where"]
+        assert (w_b5, w_b1) == (0, w_eng.stats["launches"])
+        for a, b in zip(done, w_done):
+            assert a.uid == b.uid and a.skip_count == b.skip_count
+            for (ba, sa), (bb, sb) in zip(a.frame_outputs, b.frame_outputs):
+                np.testing.assert_array_equal(ba, bb)
+                np.testing.assert_array_equal(sa, sb)
+    finally:
+        torch.backends.cudnn.deterministic = False
