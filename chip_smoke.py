@@ -17,6 +17,10 @@ no result:
    followed by `torch.where`, bit for bit, and against its plain version,
    over masks (all re-run, all skip, mixed, one slot), at the stream
    shape, at s < k and at Ho = 1, in every mode;
+3c. hold the chunked WKV kernel (B7) against its plain version at the LM
+   serving tick's shape (8, 64, 40, 64) and at S in {1, 15, 17, 100} x D
+   in {16, 64}, from a random initial state, within 1e-4 of the largest
+   |plain|; a row whose lw and k are all zero keeps its state bit for bit;
 4. hold the backward kernels (B3 dX, B4 dW) against their plain versions
    in float64 over conv geometries (s < k, ragged M and N, dx = 1..4)
    and at the training shape;
@@ -34,6 +38,21 @@ no result:
    the measured skip rate and bandwidth reduction exact, B5 once a tick
    and no B1 on the gated engine, B1 once a tick on the where engine; a
    NaN cache forces its slot to re-run and drops its gate to dense;
+5c. the LM path: RWKV-6 3B (`configs/rwkv6_3b.py::CONFIG`, 32 layers,
+   d_model 2560, float32) with random weights from a seed, served through
+   `ServeEngine` (8 slots, max_len 512, chunked prefill 64): 16
+   SyntheticLMDataset prompts of 24-150 tokens with staggered arrivals,
+   16 new tokens each, through `drive()`; every request completes, B7
+   launches 32 times on each prefill tick and never on a decode tick; the
+   first prefill tick replayed with each layer's B7 call held against the
+   plain WKV on the same inputs (within 1e-4 of the largest |plain|); that
+   tick's logits with B7 within the model's own float32 spread of those
+   with the plain WKV (the spread: the largest difference among the
+   plain WKV, the per-token scan and a float64 run, which at full depth is
+   1e-2 of the logits); the tokens equal a plain-WKV run's, or first differ
+   at a near-tie (top-2 margin within that spread); then `SessionEngine`:
+   4 sessions of 3 turns on 4 slots, all complete, B7 on every turn
+   prefill;
 6. the training path: 6 steps of `make_vww_train_step` on `CONFIG` at
    batch 32 with the paper's `sgd(step_decay(...), momentum=0.9)`; every
    loss finite, each step launches B1, B3 and B4 exactly once;
@@ -50,8 +69,9 @@ no result:
    the least time the card could take (B5 at skip shares 0, 1/2, 1);
    the vision engine's time per launch and its parts; the stream
    engines' time per tick and its parts; the train step's time and its
-   parts;
-10. one JSON line ``{"kernels": [...]}`` (B1, B3, B4, B5);
+   parts; B7 at the serving tick's shape, and the LM engine's time per
+   prefill and per decode tick with their parts;
+10. one JSON line ``{"kernels": [...]}`` (B1, B3, B4, B5, B7);
 11. the card's name and power limit as nvidia-smi gives them, then the
     last line ``{"ok": true, "device": {...}}``.
 """
@@ -926,6 +946,484 @@ def time_stream(torch, np, dev, stream, flush, adc):
                                        for k, v in rows.items()}}
 
 
+LM_ARCH = "rwkv6-3b"
+LM_MAX_BATCH, LM_MAX_LEN, LM_CHUNK = 8, 512, 64
+LM_REQUESTS, LM_NEW_TOKENS = 16, 16
+WKV_SERVE_SHAPE = (LM_MAX_BATCH, LM_CHUNK, 40, 64)  # (B, S, H, D) a tick
+WKV_TOL = 1e-4  # of the largest |plain|: fp32 sums and exps in another order
+# The first prefill tick's logits, absolute (the largest |logit| is 4.6 at
+# this seed).  Float32 rounding, carried through 32 random-weight layers,
+# moves them 0.045 between B7 and the plain twin and up to 0.20 between
+# runs with no kernel; a wrong WKV moves them further (PERF.md §6).
+LM_LOGIT_TOL = 0.1  # B7 vs the plain twin; a differing token's top-2 margin
+LM_SPREAD_TOL = 0.3  # any two of B7, plain, per-token scan and float64
+LM_SWEEP_DEPTHS = (1, 2, 4, 8, 16)
+
+
+def wkv_inputs(torch, np, dev, b, s, h, d, seed):
+    """r, k, v, lw, u, state for B7: lw in the model's band [-5, -1e-6],
+    a random nonzero initial state."""
+    rng = np.random.default_rng(seed)
+
+    def f(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+
+    lw = torch.from_numpy(-rng.uniform(1e-6, 5.0, (b, s, h, d)).astype(
+        np.float32)).to(dev)
+    return f(b, s, h, d), f(b, s, h, d), f(b, s, h, d), lw, f(h, d) * 0.3, \
+        f(b, h, d, d) * 0.5
+
+
+def check_wkv_kernel(torch, np, dev):
+    """Phase 3c: B7 against its plain twin at the serving tick's shape and
+    at S in {1, 15, 17, 100} x D in {16, 64}, with a random initial state;
+    a row whose lw and k are all zero keeps its state bit for bit.
+    Returns the largest abs error at the serving shape and its inputs."""
+    from repro_torch.kernels.rwkv_wkv import kernel, ref
+
+    cases = [("serving tick", WKV_SERVE_SHAPE)] + [
+        (f"S={s} D={d}", (2, s, 3, d)) for s in (1, 15, 17, 100)
+        for d in (16, 64)]
+    for i, (name, shape) in enumerate(cases):
+        r, k, v, lw, u, s0 = wkv_inputs(torch, np, dev, *shape, SEED + 20 + i)
+        lw[1], k[1] = 0.0, 0.0  # row 1 advances no token
+        y, sf = kernel.wkv_fused(r, k, v, lw, u, s0)
+        torch.cuda.synchronize()
+        y_p, s_p = ref.wkv_chunked_plain(r, k, v, lw, u, s0)
+        line = f"[3c] {name:12s} {shape}:"
+        errs = {}
+        for key, got, want in (("y", y, y_p), ("state", sf, s_p)):
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            errs[key] = err
+            line += f" {key} err {err:.3e} (of {scale:.3e})"
+            check(err <= WKV_TOL * scale, f"{name}: B7 {key} differs by "
+                  f"{err}, more than {WKV_TOL} of {scale}")
+        check(torch.equal(sf[1], s0[1]), f"{name}: the masked row's state "
+              "changed")
+        print(line + "; masked row's state bitwise kept")
+        if i == 0:
+            serve_err = max(errs.values())
+            serve_inputs = (r, k, v, lw, u, s0)
+    return serve_err, serve_inputs
+
+
+def lm_path(torch, np, dev, cfg):
+    """Phase 5c: serve ``cfg`` (rwkv6-3b, float32, random weights from
+    ``SEED``) through `ServeEngine` with chunked prefill and through
+    `SessionEngine`.  Returns what phase 9 reads."""
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels.rwkv_wkv import kernel
+    from repro_torch.models import rwkv6
+    from repro_torch.models.families import get_family
+    from repro_torch.serving import (
+        Request,
+        ServeEngine,
+        SessionEngine,
+        SessionRequest,
+        drive,
+    )
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    params, _ = get_family(cfg).init(torch.Generator(dev).manual_seed(SEED),
+                                     cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    print(f"[5c] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_rwkv_heads} heads of {cfg.rwkv_head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}; {n_params} parameters "
+          f"({4 * n_params / 1e9:.2f} GB fp32), initialized on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SEED + 12)
+    lengths = rng.integers(24, 151, LM_REQUESTS)
+    data = SyntheticLMDataset(vocab=cfg.vocab, seq_len=150,
+                              batch=LM_REQUESTS, seed=SEED).batch_at(0)
+    prompts = [data["tokens"][i, :n].tolist() for i, n in enumerate(lengths)]
+    arrivals = [0] * 6 + [1] * 2 + [3] * 4 + [7] * 4
+
+    def requests():
+        return [Request(uid=i, prompt=p, max_new_tokens=LM_NEW_TOKENS,
+                        arrival_tick=t)
+                for i, (p, t) in enumerate(zip(prompts, arrivals))]
+
+    def instrument(eng, first=None):
+        """Record each step's kind and B7 launches, and the top-2 margin
+        of the logits behind each emitted token; keep the first chunk
+        step's inputs and logits in ``first``."""
+        ticks, margins, now = [], {}, {}
+        steps = {"prefill": eng._chunk_step, "decode": eng._step}
+
+        def wrap(kind):
+            def step(params_, state, *args):
+                if kind == "prefill" and first is not None and not first:
+                    first["inputs"] = (tree_map(torch.clone, state),
+                                       *(a.clone() for a in args))
+                before = kernel.wkv_fused.launches
+                last, new_state = steps[kind](params_, state, *args)
+                ticks.append((kind, kernel.wkv_fused.launches - before))
+                top = torch.topk(last, 2, dim=-1).values
+                now["margin"] = (top[:, 0] - top[:, 1]).cpu().numpy()
+                if kind == "prefill" and first is not None \
+                        and "last" not in first:
+                    first["last"] = last.clone()
+                return last, new_state
+            return step
+
+        eng._chunk_step, eng._step = wrap("prefill"), wrap("decode")
+        absorb = eng._absorb
+
+        def absorb_and_record(i, req, result):
+            n = len(eng._gen(req))
+            finished = absorb(i, req, result)
+            if len(eng._gen(req)) > n:
+                margins.setdefault(req.uid, []).append(float(now["margin"][i]))
+            return finished
+
+        eng._absorb = absorb_and_record
+        return ticks, margins
+
+    def serve(run_cfg, first=None):
+        eng = ServeEngine(params, run_cfg, max_batch=LM_MAX_BATCH,
+                          max_len=LM_MAX_LEN, prefill_chunk=LM_CHUNK,
+                          device=dev)
+        ticks, margins = instrument(eng, first)
+        torch.cuda.synchronize()
+        kernel.wkv_fused.launches = 0
+        t0 = time.perf_counter()
+        drive(eng, requests(), on_undrained="raise")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernel.wkv_fused.launches
+        done = sorted(eng.completed, key=lambda r: r.uid)
+        check([r.uid for r in done] == list(range(LM_REQUESTS))
+              and not eng.failed and not eng.evicted,
+              f"{run_cfg.wkv_impl}: completed {[r.uid for r in done]}, "
+              f"failed {len(eng.failed)}, evicted {len(eng.evicted)}")
+        check(all(len(r.output) == LM_NEW_TOKENS
+                  and all(0 <= t < cfg.vocab for t in r.output)
+                  for r in done), f"{run_cfg.wkv_impl}: outputs misshapen")
+        kinds = [k for k, _ in ticks]
+        print(f"[5c] ServeEngine ({run_cfg.wkv_impl}): {len(done)} requests "
+              f"(prompts {min(lengths)}-{max(lengths)} tokens), "
+              f"{sum(len(r.output) for r in done)} tokens in "
+              f"{eng.stats['launches']} ticks ({kinds.count('prefill')} "
+              f"prefill, {kinds.count('decode')} decode), {seconds:.2f} s; "
+              f"B7 launches {launches}")
+        return eng, done, ticks, margins, launches
+
+    first = {}
+    eng, done, ticks, margins, launches = serve(cfg, first)
+    for j, (kind, n) in enumerate(ticks):
+        want = cfg.n_layers if kind == "prefill" else 0
+        check(n == want, f"step {j} ({kind}) launched B7 {n} times, not "
+              f"{want}")
+    check(launches == cfg.n_layers * sum(k == "prefill" for k, _ in ticks)
+          and launches > 0, f"B7 launches {launches}")
+    # The first prefill tick again, each layer's B7 call held against the
+    # plain twin on the same inputs (these launches are not the path's).
+    from repro_torch.kernels.rwkv_wkv import ops, ref
+
+    plain_cfg = cfg.replace(wkv_impl="plain")
+    state, tokens, _, n_active = first["inputs"]
+    layer_errs = []
+
+    def layer_err(y, s_new, r, k, v, lw, u, st, chunk):
+        """Largest error of a WKV call's (y, state) against the plain
+        twin's on the same inputs, of the largest |plain|."""
+        y_p, s_p = ref.wkv_chunked_plain(r, k, v, lw, u, st, chunk)
+        return max(float((y - y_p).abs().max()) / float(y_p.abs().max()),
+                   float((s_new - s_p).abs().max()) / float(s_p.abs().max()))
+
+    def checked(r, k, v, lw, u, st, *, chunk):
+        y, s_new = real(r, k, v, lw, u, st, chunk=chunk)
+        layer_errs.append(layer_err(y, s_new, r, k, v, lw, u, st, chunk))
+        return y, s_new
+
+    real, counted = ops.wkv_fused, kernel.wkv_fused.launches
+    ops.wkv_fused = checked
+    try:
+        with torch.no_grad():
+            replay, _ = rwkv6.prefill_step(params, state, tokens, n_active,
+                                           cfg)
+    finally:
+        ops.wkv_fused = real
+    kernel.wkv_fused.launches = counted
+    print(f"[5c] first prefill tick replayed: B7 vs plain twin on each "
+          f"layer's own inputs, largest error (of the largest |plain|) "
+          f"{max(layer_errs):.3e} over {len(layer_errs)} layers; logits "
+          f"equal to the run's bit for bit: {torch.equal(replay, first['last'])}")
+    check(len(layer_errs) == cfg.n_layers
+          and max(layer_errs) <= WKV_TOL, f"B7 on the model's inputs: "
+          f"{layer_errs}")
+    check(torch.equal(replay, first["last"]), "the replayed tick's logits "
+          "differ from the run's")
+    # The tick's logits from the first ``depth`` layers: B7, the plain
+    # twin, the per-token scan, and the plain twin with every weight and
+    # activation outside the WKV (which the model runs in float32) in
+    # float64.  Shallower depths show how the spread grows; two wrong
+    # WKVs show what the limit must catch.
+    rows = n_active > 0
+    p64 = tree_map(lambda a: a.double(), params)
+    s64 = {k: a if k == "wkv" else a.double() for k, a in state.items()}
+    f64_cfg = plain_cfg.replace(dtype=torch.float64)
+
+    def tick(p, s, depth, run_cfg):
+        p = {"embed": p["embed"],
+             "layers": tree_map(lambda a: a[:depth], p["layers"])}
+        s = tree_map(lambda a: a[:depth], s)
+        with torch.no_grad():
+            return rwkv6.prefill_step(p, s, tokens, n_active, run_cfg.replace(
+                n_layers=depth))[0][rows].double()
+
+    def gap(a, b):
+        return float((a - b).abs().max())
+
+    counted = kernel.wkv_fused.launches
+    for depth in (d for d in LM_SWEEP_DEPTHS if d < cfg.n_layers):
+        plain = tick(params, state, depth, plain_cfg)
+        print(f"[5c] first prefill tick, first {depth:2d} layers: logits "
+              f"cuda-plain {gap(tick(params, state, depth, cfg), plain):.3e}"
+              f", plain-f64 {gap(plain, tick(p64, s64, depth, f64_cfg)):.3e}")
+    kernel.wkv_fused.launches = counted
+    last = {"cuda": first["last"][rows].double(),
+            "plain": tick(params, state, cfg.n_layers, plain_cfg),
+            "naive": tick(params, state, cfg.n_layers,
+                          cfg.replace(wkv_impl="naive")),
+            "f64": tick(p64, s64, cfg.n_layers, f64_cfg)}
+    del p64, s64
+    torch.cuda.empty_cache()
+    dist = {f"{a}-{b}": gap(last[a], last[b])
+            for a, b in (("cuda", "plain"), ("cuda", "naive"),
+                         ("plain", "naive"), ("cuda", "f64"), ("plain", "f64"),
+                         ("naive", "f64"))}
+    print(f"[5c] first prefill tick ({int(rows.sum())} slots, "
+          f"{int(n_active.sum())} tokens), all {cfg.n_layers} layers: logits "
+          f"max abs differences (of {float(last['f64'].abs().max()):.3e}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in dist.items()))
+    check(dist["cuda-plain"] <= LM_LOGIT_TOL, f"first prefill tick: B7's "
+          f"logits {dist['cuda-plain']} from the plain twin's, more than "
+          f"{LM_LOGIT_TOL}")
+    check(max(dist.values()) <= LM_SPREAD_TOL, f"first prefill tick: the "
+          f"logits' float32 spread {dist} exceeds {LM_SPREAD_TOL}")
+    plain_wkv = ops.wkv_chunked_plain
+
+    def no_bonus(r, k, v, lw, u, st, chunk):
+        return plain_wkv(r, k, v, lw, torch.zeros_like(u), st, chunk)
+
+    def no_carry(r, k, v, lw, u, st, chunk):
+        ys = []
+        for i in range(0, r.shape[1], chunk):
+            y, s_new = plain_wkv(*(a[:, i:i + chunk] for a in (r, k, v, lw)),
+                                 u, st, chunk)
+            ys.append(y)
+        return torch.cat(ys, 1), s_new
+
+    # Each wrong WKV must fail the per-layer check or the logits limit.
+    for name, wrong in (("bonus u dropped", no_bonus),
+                        ("state not carried across chunks", no_carry)):
+        errs = []
+
+        def traced(r, k, v, lw, u, st, chunk, wrong=wrong, errs=errs):
+            y, s_new = wrong(r, k, v, lw, u, st, chunk)
+            errs.append(layer_err(y, s_new, r, k, v, lw, u, st, chunk))
+            return y, s_new
+
+        ops.wkv_chunked_plain = traced
+        try:
+            moved = gap(tick(params, state, cfg.n_layers, plain_cfg),
+                        last["plain"])
+        finally:
+            ops.wkv_chunked_plain = plain_wkv
+        print(f"[5c] wrong WKV, {name}: per layer {max(errs):.3e} of the "
+              f"largest |plain| (limit {WKV_TOL}), logits {moved:.3e} "
+              f"(limit {LM_LOGIT_TOL})")
+        check(max(errs) > WKV_TOL or moved > LM_LOGIT_TOL, f"the wrong WKV "
+              f"({name}) passes both the per-layer check and the logits "
+              "limit")
+    del state, first
+    # Tokens of a plain-twin run: identical, or the first difference at a
+    # near-tie.
+    p_eng, p_done, _, p_margins, p_launches = serve(plain_cfg)
+    check(p_launches == 0, f"the plain run launched B7 {p_launches} times")
+    same = 0
+    for a, b in zip(done, p_done):
+        if a.output == b.output:
+            same += 1
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(a.output, b.output))
+                 if x != y)
+        m = min(margins[a.uid][j], p_margins[b.uid][j])
+        print(f"[5c] request {a.uid}: tokens differ first at output {j} "
+              f"({a.output[j]} vs {b.output[j]}), top-2 margin {m:.3e} "
+              f"(limit {LM_LOGIT_TOL})")
+        check(m <= LM_LOGIT_TOL, f"request {a.uid}: tokens differ at output "
+              f"{j}, not a near-tie (margin {m})")
+    print(f"[5c] tokens: {same} of {len(done)} requests identical to the "
+          f"plain-twin run; the smallest top-2 margin behind any emitted "
+          f"token {min(min(v) for v in margins.values()):.3e}")
+    del p_eng, p_done
+
+    # Sessions: 4 conversations of 3 turns on 4 slots.
+    srng = np.random.default_rng(SEED + 13)
+    sdata = SyntheticLMDataset(vocab=cfg.vocab, seq_len=90, batch=12,
+                               seed=SEED + 1).batch_at(0)["tokens"]
+    turns = [[sdata[3 * i + t, :int(srng.integers(20, 91))].tolist()
+              for t in range(3)] for i in range(4)]
+    sess = SessionEngine(params, cfg, max_batch=4, max_len=LM_MAX_LEN,
+                         prefill_chunk=LM_CHUNK, device=dev)
+    s_ticks, _ = instrument(sess)
+    torch.cuda.synchronize()
+    kernel.wkv_fused.launches = 0
+    t0 = time.perf_counter()
+    sreqs = [SessionRequest(uid=i, turns=t, max_new_tokens=8)
+             for i, t in enumerate(turns)]
+    drive(sess, sreqs, on_undrained="raise")
+    torch.cuda.synchronize()
+    s_launches = kernel.wkv_fused.launches
+    check(sorted(r.uid for r in sess.completed) == [0, 1, 2, 3]
+          and all(r.done and len(r.outputs) == 3
+                  and all(len(o) == 8 for o in r.outputs) for r in sreqs),
+          "sessions did not all complete their 3 turns")
+    n_prefill = sum(k == "prefill" for k, _ in s_ticks)
+    check(all(n == (cfg.n_layers if k == "prefill" else 0)
+              for k, n in s_ticks) and s_launches == cfg.n_layers * n_prefill
+          and n_prefill >= 3, f"session B7 launches {s_launches} over "
+          f"{n_prefill} prefill ticks")
+    print(f"[5c] SessionEngine: 4 sessions x 3 turns (turn prompts "
+          f"{min(len(t) for ts in turns for t in ts)}-"
+          f"{max(len(t) for ts in turns for t in ts)} tokens) in "
+          f"{sess.stats['launches']} ticks ({n_prefill} prefill), "
+          f"{time.perf_counter() - t0:.2f} s; B7 launches {s_launches}")
+    return {"params": params, "cfg": cfg, "requests": requests, "launches": launches + s_launches,
+            "serve_launches": launches, "session_launches": s_launches}
+
+
+def time_lm(torch, np, dev, lm, wkv_in, flush):
+    """Phase 9, LM part: B7 alone at the serving tick's shape beside its
+    bound and its plain twin; the engine's time per prefill and per
+    decode tick, warm; and the parts of each, timed alone.  Returns B7's
+    row of the kernels line, without launches and error."""
+    from repro_torch.kernels.rwkv_wkv import kernel, ref
+    from repro_torch.models import rwkv6
+    from repro_torch.models.layers import apply_norm, embed_tokens, lm_head
+    from repro_torch.serving import drive
+    from repro_torch.tree import tree_leaves, tree_map
+
+    counted = kernel.wkv_fused.launches
+    r, k, v, lw, u, s0 = wkv_in
+    b, s, h, d = r.shape
+    ms = cuda_ms(torch, lambda: kernel.wkv_fused(r, k, v, lw, u, s0), flush)
+    plain_ms = cuda_ms(torch, lambda: ref.wkv_chunked_plain(
+        r, k, v, lw, u, s0), flush)
+    nbytes = 4 * (5 * r.numel() + u.numel() + 2 * s0.numel())
+    n_chunks = -(-s // 16)
+    # per chunk and head: inter q@S0 and the state's kd^T v (2 C D^2 each),
+    # the strictly causal scores and their product with v (C(C-1) D each),
+    # the decay's scale of S (D^2), the bonus diagonal (3 C D)
+    flops = b * h * n_chunks * (4 * 16 * d * d + 2 * 16 * 15 * d + d * d
+                                + 3 * 16 * d)
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"[9] wkv_fused at {tuple(r.shape)}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, no library call computes it; bound "
+          f"{b_ms:.4f} ms by {b_by} ({nbytes} bytes, {flops} FLOP)")
+
+    # The engine per tick, warm: the same requests again, each step timed
+    # on the host clock (a step ends in the copy of its tokens to the
+    # host).
+    from repro_torch.serving import ServeEngine
+
+    cfg, params = lm["cfg"], lm["params"]
+    eng = ServeEngine(params, cfg, max_batch=LM_MAX_BATCH, max_len=LM_MAX_LEN,
+                      prefill_chunk=LM_CHUNK, device=dev)
+    launch = eng._launch
+    per = {"prefill": [], "decode": []}
+
+    def timed(active):
+        t0 = time.perf_counter()
+        nxt, adv = launch(active)
+        per["prefill" if int(adv.max()) > 1 else "decode"].append(
+            (time.perf_counter() - t0) * 1e3)
+        return nxt, adv
+
+    eng._launch = timed
+    drive(eng, lm["requests"](), on_undrained="raise")
+    tick = {kind: statistics.median(v) for kind, v in per.items()}
+    weight_bytes = 4 * sum(p.numel() for p in tree_leaves(params))
+    print(f"[9] LM engine, warm (host clock): prefill tick "
+          f"{tick['prefill']:.3f} ms (median of {len(per['prefill'])}, "
+          f"{LM_MAX_BATCH} slots x {LM_CHUNK} tokens), decode tick "
+          f"{tick['decode']:.3f} ms (median of {len(per['decode'])}, "
+          f"{LM_MAX_BATCH} slots); reading the weights once takes "
+          f"{weight_bytes / PEAK_BYTES_PER_S * 1e3:.3f} ms at the HBM rate")
+
+    # Where a tick goes: one layer's parts at each tick's shape, timed
+    # alone (CUDA events), times the layers; the head once.
+    lp = tree_map(lambda a: a[0], params["layers"])
+    gen = torch.Generator(dev).manual_seed(SEED + 14)
+    with torch.no_grad():
+        for kind, seq in (("prefill", LM_CHUNK), ("decode", 1)):
+            x = torch.randn((LM_MAX_BATCH, seq, cfg.d_model), generator=gen,
+                            device=dev)
+            prev = torch.randn((LM_MAX_BATCH, cfg.d_model), generator=gen,
+                               device=dev)
+            st = torch.randn((LM_MAX_BATCH, cfg.n_rwkv_heads,
+                              cfg.rwkv_head_dim, cfg.rwkv_head_dim),
+                             generator=gen, device=dev) * 0.1
+            lengths = torch.full((LM_MAX_BATCH,), seq, device=dev)
+            chunked = kind == "prefill"
+            kw = dict(chunked=chunked, lengths=lengths if chunked else None)
+            parts = {
+                "norms (2 a layer)": cuda_ms(torch, lambda: (
+                    apply_norm(lp["att_norm"], x, cfg),
+                    apply_norm(lp["ffn_norm"], x, cfg)), flush),
+                "time mix (ddlerp, r/k/v/g/decay projections, WKV, "
+                "GroupNorm, output)": cuda_ms(torch, lambda: rwkv6._time_mix(
+                    lp["att"], x, prev, st, cfg, **kw), flush),
+            }
+            hh, dd = cfg.n_rwkv_heads, cfg.rwkv_head_dim
+            wk = [torch.randn((LM_MAX_BATCH, seq, hh, dd), generator=gen,
+                              device=dev) for _ in range(3)]
+            wl = -torch.rand((LM_MAX_BATCH, seq, hh, dd), generator=gen,
+                             device=dev) * 5
+            uu = lp["att"]["u"].float()
+            wkv_fn = ((lambda: kernel.wkv_fused(*wk, wl, uu, st)) if chunked
+                      else (lambda: rwkv6.wkv_naive(*wk, wl, uu, st)))
+            parts["  of which WKV (B7)" if chunked else
+                  "  of which WKV (per-token scan, plain)"] = cuda_ms(
+                      torch, wkv_fn, flush)
+            parts["channel mix (ddlerp, squared-ReLU FFN, receptance)"] = \
+                cuda_ms(torch, lambda: rwkv6._channel_mix(
+                    lp["ffn"], x, prev, cfg, lengths=kw["lengths"]), flush)
+            toks = torch.zeros((LM_MAX_BATCH, seq), dtype=torch.long,
+                               device=dev)
+            once = {"embedding": cuda_ms(torch, lambda: embed_tokens(
+                        params["embed"], toks, cfg), flush),
+                    f"head (final norm, {cfg.d_model} x "
+                    f"{cfg.padded_vocab} projection, all positions)":
+                    cuda_ms(torch, lambda: lm_head(
+                        params["embed"], x, cfg), flush)}
+            wkv_key = [key for key in parts if key.startswith("  of which")][0]
+            proj = parts["time mix (ddlerp, r/k/v/g/decay projections, WKV, "
+                         "GroupNorm, output)"] - parts[wkv_key]
+            total = (cfg.n_layers * (sum(parts.values()) - parts[wkv_key])
+                     + sum(once.values()))
+            for name, t in parts.items():
+                print(f"[9] LM {kind} tick part, one layer: {name}: {t:.4f} "
+                      f"ms (x {cfg.n_layers} = {cfg.n_layers * t:.3f} ms)")
+            print(f"[9] LM {kind} tick part: projections and the rest of the "
+                  f"time mix (time mix less WKV), x {cfg.n_layers}: "
+                  f"{cfg.n_layers * proj:.3f} ms")
+            for name, t in once.items():
+                print(f"[9] LM {kind} tick part: {name}: {t:.3f} ms")
+            print(f"[9] LM {kind} tick: parts sum to {total:.3f} ms of "
+                  f"{tick[kind]:.3f} ms")
+    kernel.wkv_fused.launches = counted
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -943,7 +1441,9 @@ def main() -> int:
     from repro_torch.core.p2m_conv import apply_p2m_conv_deploy
     from repro_torch.data import SyntheticVWW
     from repro_torch.kernels import _build
+    from repro_torch.configs import get_config
     from repro_torch.kernels.p2m_conv import backward, conv
+    from repro_torch.kernels.rwkv_wkv import kernel as wkv_kernel
     from repro_torch.models.mobilenetv2 import (
         apply_mnv2_backbone,
         apply_mnv2_stem,
@@ -963,13 +1463,14 @@ def main() -> int:
 
     # ------------------------------------------------------- phase 2
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, together
         for job in [pool.submit(conv.build_p2m_conv),
-                    pool.submit(backward.build_p2m_bwd)]:
+                    pool.submit(backward.build_p2m_bwd),
+                    pool.submit(wkv_kernel.build_wkv)]:
             job.result()
-    print(f"[2] built both sources in {time.perf_counter() - t0:.2f} s "
+    print(f"[2] built the three sources in {time.perf_counter() - t0:.2f} s "
           "with loading")
-    for name in ("p2m_conv", "p2m_bwd"):
+    for name in ("p2m_conv", "p2m_bwd", "wkv"):
         seconds, report = _build.BUILD_INFO[name]
         print(f"[2] {name}.cu: nvcc {seconds:.2f} s")
         for line in report.splitlines():
@@ -1048,6 +1549,7 @@ def main() -> int:
     gated_err = check_gated_kernel(torch, np, dev,
                                    paper_imgs[:4].contiguous(), wrows, shift,
                                    rand_case, adc)
+    wkv_err, wkv_in = check_wkv_kernel(torch, np, dev)
 
     # ------------------------------------------------------- phase 4
     bwd_err, bwd = check_backward_kernels(torch, np, dev)
@@ -1107,6 +1609,9 @@ def main() -> int:
           and rep["all_near_half"], f"stem vs patches: {rep}")
 
     stream = stream_path(torch, np, dev, params, bn)
+
+    lm = lm_path(torch, np, dev,
+                 get_config(LM_ARCH).replace(dtype=torch.float32))
 
     # ------------------------------------------------------- phase 6
     train = train_path(torch, np, dev)
@@ -1197,6 +1702,7 @@ def main() -> int:
     gated_row = time_stream(torch, np, dev, stream, flush, adc)
     bwd_rows = time_backward_kernels(torch, bwd, flush)
     time_train_step(torch, train, flush)
+    wkv_row = time_lm(torch, np, dev, lm, wkv_in, flush)
 
     # ------------------------------------------------------- phase 10
     kernels = [{
@@ -1242,6 +1748,17 @@ def main() -> int:
             "stream": stream["launches"]["p2m_conv_fused_gated"]},
         "max_abs_err": gated_err,
         **gated_row,
+    })
+    kernels.append({
+        "name": "wkv_fused",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv_wkv/csrc/wkv.cu",
+        "replaces": "src/repro/kernels/rwkv_wkv/kernel.py:108",
+        # the LM path: ServeEngine's and SessionEngine's prefill ticks
+        "launches": lm["launches"],
+        "launches_by_path": {"lm": lm["launches"]},
+        "max_abs_err": wkv_err,
+        **wkv_row,
     })
     print(json.dumps({"kernels": kernels}))
     print(smi)

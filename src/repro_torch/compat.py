@@ -8,7 +8,10 @@ tree)``) into the port's tree of tensors on ``device``:
   ``(3, 3, 1, C)`` becomes ``(C, 1, 3, 3)``;
 * everything else keeps its layout: the P²M ``theta`` (k, k, C, Co) and
   flat deploy ``w`` (k·k·C, Co) in (kh, kw, C)-fastest order, ``fc``,
-  and every BN vector.
+  and every BN vector, and every leaf of an LM's parameter or
+  decode-state tree (`repro.models.rwkv6.init_rwkv`, `init_rwkv_state`),
+  since ``x @ W`` is ``x @ W`` in both frameworks (the 4-D ``lora_b`` is
+  no ``w``).
 
 `train_state_from_reference` carries a whole VWW train state across:
 ``params``, ``bn``, the optimizer state (``mu``, or ``m`` and ``v``, which

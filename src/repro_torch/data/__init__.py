@@ -1,3 +1,4 @@
+from repro_torch.data.lm import SyntheticLMDataset
 from repro_torch.data.vww_synthetic import SyntheticVWW
 
-__all__ = ["SyntheticVWW"]
+__all__ = ["SyntheticLMDataset", "SyntheticVWW"]

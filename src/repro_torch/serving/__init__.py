@@ -1,3 +1,4 @@
+from repro_torch.serving.engine import Request, ServeEngine, greedy_generate
 from repro_torch.serving.scheduler import (
     ADMITTED,
     EVICTION_POLICIES,
@@ -11,9 +12,12 @@ from repro_torch.serving.scheduler import (
     drop_oldest,
     shed_deadline,
 )
+from repro_torch.serving.sessions import SessionEngine, SessionRequest
 from repro_torch.serving.vision import VisionEngine, VisionRequest
 
-__all__ = ["VisionEngine", "VisionRequest", "ScheduledRequest", "SlotEngine",
+__all__ = ["Request", "ServeEngine", "greedy_generate",
+           "SessionEngine", "SessionRequest",
+           "VisionEngine", "VisionRequest", "ScheduledRequest", "SlotEngine",
            "drive", "EVICTION_POLICIES", "drop_newest", "drop_oldest",
            "shed_deadline", "ADMITTED", "REJECTED_DEADLINE",
            "REJECTED_HALTED", "REJECTED_QUEUE"]

@@ -11,25 +11,32 @@ relu rtol 1e-5 / atol 1e-6; quant counts may differ by one in at most
 B4 dW) are held to their plain twins computed in float64 within 1e-4 of
 the largest |plain| (fp32 sums over up to 10^5 rows in another order).
 The gated stem (B5) equals B1 followed by ``torch.where`` bit for bit,
-and its plain twin to B1's tolerances.
+and its plain twin to B1's tolerances.  The chunked WKV (B7) is held to
+its plain twin within 1e-4 of the largest |plain| (fp32 sums over up to
+64 terms and exps in another order, as the reference holds its own
+kernel), and keeps a masked row's state bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke_config
 from repro_torch.configs.p2m_vww import SMOKE
 from repro_torch.core.p2m_conv import P2MConvConfig, apply_p2m_conv_deploy
 from repro_torch.core.pixel_model import default_pixel_model
 from repro_torch.data import SyntheticVWW
 from repro_torch.kernels.p2m_conv import backward, conv, gated, ops
 from repro_torch.kernels.p2m_conv.ops import _coeff_tuple
+from repro_torch.kernels.rwkv_wkv import kernel as wkv_kernel
+from repro_torch.kernels.rwkv_wkv.ref import wkv_chunked_plain
+from repro_torch.models.families import get_family
 from repro_torch.models.mobilenetv2 import (
     MNV2Config,
     head_out_channels,
     init_mnv2,
 )
 from repro_torch.optim import sgd, step_decay
-from repro_torch.serving import VisionEngine, VisionRequest
+from repro_torch.serving import Request, ServeEngine, VisionEngine, VisionRequest
 from repro_torch.train.vision import make_vww_train_step, vww_train_state
 from repro_torch.video import (
     DetectConfig,
@@ -379,3 +386,102 @@ def test_gated_stream_on_the_card(cuda):
                 np.testing.assert_array_equal(sa, sb)
     finally:
         torch.backends.cudnn.deterministic = False
+
+
+# ------------------------------------------------------------------ WKV (B7)
+
+WKV_TOL = 1e-4
+WKV_SHAPES = [  # (B, S, H, D)
+    (8, 64, 40, 64),  # the serving tick's shape
+    (2, 1, 3, 64), (2, 15, 3, 16), (2, 17, 3, 64), (1, 100, 2, 16),
+    (3, 45, 2, 32), (2, 16, 1, 7), (1, 0, 2, 16),
+]
+
+
+def _wkv_case(b, s, h, d, device, seed=0, zero_state=False):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).to(device)
+    r, k, v = f(b, s, h, d), f(b, s, h, d), f(b, s, h, d)
+    lw = torch.from_numpy(-rng.uniform(1e-6, 5.0, (b, s, h, d)).astype(
+        np.float32)).to(device)
+    u = f(h, d) * 0.3
+    s0 = torch.zeros((b, h, d, d), device=device) if zero_state else \
+        f(b, h, d, d) * 0.5
+    return r, k, v, lw, u, s0
+
+
+def _assert_wkv_close(got, plain):
+    err = float((got - plain).abs().max()) if got.numel() else 0.0
+    scale = float(plain.abs().max()) if plain.numel() else 0.0
+    assert err <= WKV_TOL * max(scale, 1.0), (err, scale)
+
+
+@pytest.mark.parametrize("b,s,h,d", WKV_SHAPES)
+@pytest.mark.parametrize("zero_state", [False, True])
+def test_wkv_kernel_matches_plain(cuda, b, s, h, d, zero_state):
+    ins = _wkv_case(b, s, h, d, cuda, zero_state=zero_state)
+    before = wkv_kernel.wkv_fused.launches
+    y, sf = wkv_kernel.wkv_fused(*ins)
+    torch.cuda.synchronize()
+    assert wkv_kernel.wkv_fused.launches == before + 1
+    y_p, s_p = wkv_chunked_plain(*ins)
+    assert y.shape == y_p.shape and sf.shape == s_p.shape
+    _assert_wkv_close(y, y_p)
+    _assert_wkv_close(sf, s_p)
+
+
+@pytest.mark.parametrize("b,s,h,d", [(4, 37, 3, 64), (2, 64, 2, 16)])
+def test_wkv_kernel_keeps_masked_rows_bit_for_bit(cuda, b, s, h, d):
+    """A row whose lw and k are 0 everywhere keeps its state bit for bit;
+    one masked past its 5th token equals the same row cut at 5 tokens."""
+    r, k, v, lw, u, s0 = _wkv_case(b, s, h, d, cuda, seed=1)
+    lw[1], k[1] = 0.0, 0.0
+    lw[0, 5:], k[0, 5:] = 0.0, 0.0
+    _, sf = wkv_kernel.wkv_fused(r, k, v, lw, u, s0)
+    torch.cuda.synchronize()
+    assert torch.equal(sf[1], s0[1])
+    cut = [a[:, :5].contiguous() for a in (r, k, v, lw)]
+    _, s5 = wkv_kernel.wkv_fused(*cut, u, s0)
+    _assert_wkv_close(sf[0], s5[0])
+
+
+def test_wkv_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    r, k, v, lw, u, s0 = _wkv_case(2, 20, 2, 16, cuda)
+    with pytest.raises(TypeError, match="float32"):
+        wkv_kernel.wkv_fused(r.double(), k, v, lw, u, s0)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv_kernel.wkv_fused(r.transpose(1, 2).contiguous().transpose(1, 2),
+                             k, v, lw, u, s0)
+    with pytest.raises(ValueError, match="chunk"):
+        wkv_kernel.wkv_fused(r, k, v, lw, u, s0, chunk=8)
+    with pytest.raises(ValueError, match="is on"):
+        wkv_kernel.wkv_fused(r, k, v, lw, u.cpu(), s0)
+    with pytest.raises(ValueError, match="state"):
+        wkv_kernel.wkv_fused(r, k, v, lw, u, s0[:, :1].contiguous())
+    big = _wkv_case(1, 4, 1, 80, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        wkv_kernel.wkv_fused(*big)
+
+
+def test_lm_engine_on_the_card_matches_the_cpu_port(cuda):
+    """SMOKE rwkv served on the card (chunked prefill through B7) gives
+    the tokens the same engine gives on the CPU."""
+    cfg = get_smoke_config("rwkv6-3b").replace(dtype=torch.float32)
+    params, _ = get_family(cfg).init(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist()
+               for n in (3, 17, 40, 9, 64, 1)]
+    outs = {}
+    for device in ("cpu", "cuda"):
+        eng = ServeEngine(params, cfg, max_batch=4, max_len=128,
+                          prefill_chunk=16, device=device)
+        before = wkv_kernel.wkv_fused.launches
+        done = eng.run([Request(uid=i, prompt=p, max_new_tokens=6)
+                        for i, p in enumerate(prompts)],
+                       on_undrained="raise")
+        outs[device] = ({r.uid: r.output for r in done},
+                        wkv_kernel.wkv_fused.launches - before)
+    assert outs["cuda"][0] == outs["cpu"][0]
+    assert outs["cpu"][1] == 0 and outs["cuda"][1] > 0
+    assert outs["cuda"][1] % cfg.n_layers == 0
