@@ -21,6 +21,19 @@ no result:
    serving tick's shape (8, 64, 40, 64) and at S in {1, 15, 17, 100} x D
    in {16, 64}, from a random initial state, within 1e-4 of the largest
    |plain|; a row whose lw and k are all zero keeps its state bit for bit;
+3d. hold the pipelined conv (B2, `p2m_conv_fused(pipeline_depth>=2)`)
+   against B1 bit for bit, `out` and `raw`, at depths 2, 3 and 8 (clamped
+   to k) x block_h 1, 2, 4, in every mode, at the serving, stream and
+   training shapes and over random geometries (s < k, N in {5, 8, 24},
+   dx 1-4), one line per shape and mode;
+3e. at the training shape, the gradients through `ops.p2m_conv` with
+   pipeline_depth 2 and 0 are equal bit for bit;
+3f. the tuner at the serving, stream and training signatures: its first
+   call's time, each candidate's shared memory and time, the winner; no
+   candidate may fail;
+3g. hold the P²M product (B6) against its plain twin at (100,352, 75, 8)
+   and (4096, 147, 32) in every mode, and `ops.p2m_matmul`'s gradients
+   (B6, B3, B4) against float64 autograd of `p2m_matmul_plain`;
 4. hold the backward kernels (B3 dX, B4 dW) against their plain versions
    in float64 over conv geometries (s < k, ragged M and N, dx = 1..4)
    and at the training shape;
@@ -30,6 +43,13 @@ no result:
    requests with staggered arrivals through `drive()`; every request
    completes in order, B1 launched once per engine launch, and each
    batch's probabilities equal the same forward with the plain stem;
+   the stem is B1 or B2, as the tuner picked;
+5d. the patch-level path: the serving batch's patches through
+   `ops.p2m_matmul` (B6, quant), held to the deploy stem by the count
+   rule, with its gradients through B3 and B4;
+5e. B2 inside an engine: the 24 requests served again with a depth-0
+   (B1) and then a depth-2 (B2) winner in the tuner's cache entry of the
+   serving signature; the two passes' probabilities equal bit for bit;
 5b. the streaming path: `StreamEngine` on `CONFIG` with 4 slots, a
    detection head from a seed, six hold-2 `SyntheticVideo` streams of
    12, 8, 12, 6, 12 and 10 frames at 560² (the 6-frame one noisy), on the
@@ -53,9 +73,13 @@ no result:
    at a near-tie (top-2 margin within that spread); then `SessionEngine`:
    4 sessions of 3 turns on 4 slots, all complete, B7 on every turn
    prefill;
+5f. the port's repaired faults: a prompt token ``padded_vocab`` fails
+   only its request (SMOKE rwkv), and the engine serves the next; every
+   kernel wrapper raises on an input that requires grad under grad mode;
 6. the training path: 6 steps of `make_vww_train_step` on `CONFIG` at
    batch 32 with the paper's `sgd(step_decay(...), momentum=0.9)`; every
-   loss finite, each step launches B1, B3 and B4 exactly once;
+   loss finite, each step launches B1 or B2 (as tuned), B3 and B4
+   exactly once;
 7. the first step's gradients (cuDNN deterministic): the CUDA step
    twice gives the same bits; the conv's backward through B3 and B4
    equals autograd through the plain conv on the step's own cotangent;
@@ -63,15 +87,19 @@ no result:
    steps' differences, and the network's own reach (the CUDA step with
    its stem output moved by as much), are reported;
 8. the trained model folded and 8-bit quantized (`deploy_params`,
-   `quantize_deploy`) and served: 8 requests through `VisionEngine`;
+   `quantize_deploy`) and served: 8 requests through `VisionEngine`; the
+   served stem against the plain stem by the count rule, the
+   probabilities against the plain stem's where no count differs;
 9. times on the card (CUDA events, median of 25, L2 flushed between
    runs) of each kernel, its plain version and one library call beside
-   the least time the card could take (B5 at skip shares 0, 1/2, 1);
+   the least time the card could take (B5 at skip shares 0, 1/2, 1; B2
+   at depths 2 and 3 x block_h in turns with B1; B6 with its tuned
+   blocks);
    the vision engine's time per launch and its parts; the stream
    engines' time per tick and its parts; the train step's time and its
    parts; B7 at the serving tick's shape, and the LM engine's time per
    prefill and per decode tick with their parts;
-10. one JSON line ``{"kernels": [...]}`` (B1, B3, B4, B5, B7);
+10. one JSON line ``{"kernels": [...]}`` (B1-B7);
 11. the card's name and power limit as nvidia-smi gives them, then the
     last line ``{"ok": true, "device": {...}}``.
 """
@@ -260,15 +288,20 @@ def train_path(torch, np, dev):
     data = SyntheticVWW(image_size=CONFIG.image_size, batch=TRAIN_BATCH,
                         seed=SEED)
     batches = [data.batch_at(i) for i in range(steps)]  # set-up, untimed
-    wrappers = {"p2m_conv_fused": conv.p2m_conv_fused,
-                "p2m_bwd_dx": backward.p2m_bwd_dx,
+    wrappers = {"p2m_bwd_dx": backward.p2m_bwd_dx,
                 "p2m_bwd_dw": backward.p2m_bwd_dw}
+
+    def counts():
+        return {**stem_launches(conv),
+                **{k: fn.launches for k, fn in wrappers.items()}}
+
     torch.cuda.synchronize()
     for fn in wrappers.values():
         fn.launches = 0
+    reset_stem_launches(conv)
     ms, losses = [], []
     for i, batch in enumerate(batches):
-        before = {k: fn.launches for k, fn in wrappers.items()}
+        before = counts()
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
@@ -276,13 +309,17 @@ def train_path(torch, np, dev):
         loss = float(metrics["loss"])
         losses.append(loss)
         check(np.isfinite(loss), f"step {i}: loss {loss}")
-        for k, fn in wrappers.items():
-            check(fn.launches == before[k] + 1,
-                  f"step {i}: {k} launched {fn.launches - before[k]} times")
+        now = counts()
+        diff = {k: now[k] - before[k] for k in now}
+        # the stem's forward is B1 or B2, as the tuner picked
+        check(diff["p2m_bwd_dx"] == diff["p2m_bwd_dw"] == 1
+              and diff["p2m_conv_fused"]
+              + diff["p2m_conv_fused_pipelined"] == 1,
+              f"step {i}: launches {diff}")
         print(f"[6] step {i}: loss {loss:.4f} acc "
               f"{float(metrics['acc']):.3f} {ms[-1]:.1f} ms")
-    launches = {k: fn.launches for k, fn in wrappers.items()}
-    check(all(v == steps for v in launches.values()),
+    launches = counts()
+    check(launches["p2m_bwd_dx"] == launches["p2m_bwd_dw"] == steps,
           f"training launches {launches}")
     check(state["step"] == steps, f"state step {state['step']}")
     step_ms = statistics.median(ms[1:])
@@ -420,9 +457,11 @@ def fold_and_serve(torch, np, dev, train):
     it, the example's train -> deploy -> evaluate flow."""
     from repro_torch.configs.p2m_vww import CONFIG, SERVE_QUANT_BITS
     from repro_torch.core.bn_fold import deploy_params
+    from repro_torch.core.p2m_conv import apply_p2m_conv_deploy
     from repro_torch.core.quant import QuantSpec, quantize_deploy
     from repro_torch.data import SyntheticVWW
     from repro_torch.kernels.p2m_conv import conv
+    from repro_torch.models.mobilenetv2 import apply_mnv2_backbone
     from repro_torch.serving import VisionEngine, VisionRequest, drive
     from repro_torch.train.vision import make_vww_eval
 
@@ -436,30 +475,59 @@ def fold_and_serve(torch, np, dev, train):
           "the engine's deploy tree is not the folded, quantized stem")
     images = SyntheticVWW(image_size=CONFIG.image_size, batch=8,
                           seed=SEED + 2).batch_at(0)
-    before = conv.p2m_conv_fused.launches
+    before = sum(stem_launches(conv).values())
     drive(engine, [VisionRequest(uid=i, image=images["images"][i])
                    for i in range(8)], on_undrained="raise")
     torch.cuda.synchronize()
     done = engine.completed
     check([r.uid for r in done] == list(range(8)),
           f"completion order {[r.uid for r in done]}")
-    check(conv.p2m_conv_fused.launches - before == engine.stats["launches"],
-          "served without the kernel")
+    check(sum(stem_launches(conv).values()) - before
+          == engine.stats["launches"], "served without the kernel")
     probs = np.stack([r.probs for r in done])
     check(bool(np.isfinite(probs).all()), "served probs not finite")
-    plain = engine.forward(torch.from_numpy(images["images"]).to(dev),
-                           p2m_impl="plain").cpu().numpy()
-    diff = float(np.abs(plain - probs).max())
+    x = torch.from_numpy(images["images"]).to(dev)
+    cfg = CONFIG.p2m
+    with torch.no_grad():
+        stem_k = apply_p2m_conv_deploy(engine._deploy, x, cfg)
+        stem_p = apply_p2m_conv_deploy(engine._deploy, x, cfg, impl="plain")
+        _, raw = conv.p2m_conv_premixed_plain(
+            x, engine._deploy["wrows"], torch.zeros_like(dep["shift"]),
+            kernel=cfg.kernel, stride=cfg.stride, mode="raw", want_raw=True)
+    rep = conv.quant_disagreement(stem_k, stem_p, raw, cfg.adc.v_lsb)
+    check(rep["max_count_diff"] <= 1 and rep["share"] <= 1e-4
+          and rep["all_near_half"], f"served stem vs plain stem: {rep}")
+    # The served probabilities, every one, against the backbone run here
+    # on the kernel's own stem: both sides see the same stem values.
+    with torch.no_grad():
+        feats, _ = apply_mnv2_backbone(engine._params, engine._bn, stem_k,
+                                       CONFIG)
+        logits = (feats.mean(dim=(1, 2)) @ engine._params["fc"]["w"]
+                  + engine._params["fc"]["b"])
+        own = torch.softmax(logits, dim=-1).cpu().numpy()
+    own_diff = float(np.abs(own - probs).max())
+    check(own_diff <= PROBS_TOL, f"served probs differ from the backbone "
+          f"on the kernel's stem by {own_diff}")
+    # Against the plain stem's, on every image whose stem counts all agree:
+    # a count that flips at a half count (the count rule allows it) moves
+    # its image's probabilities by the trained network's gain on one
+    # count, which can exceed PROBS_TOL.
+    plain = engine.forward(x, p2m_impl="plain").cpu().numpy()
+    agree = (stem_k == stem_p).flatten(1).all(dim=1).cpu().numpy()
+    diff = float(np.abs(plain - probs)[agree].max(initial=0.0))
     check(diff <= PROBS_TOL, f"served probs differ from the plain stem's "
-          f"by {diff}")
+          f"by {diff} on an image whose stem counts all agree")
     # The unfolded model on its running statistics, for comparison only:
     # six steps leave them far from the weights' batch statistics.
     acc_eval = make_vww_eval(CONFIG)(params, bn, images)
     acc_served = float((probs.argmax(-1) == images["labels"]).mean())
     print(f"[8] folded, {SERVE_QUANT_BITS}-bit stem served 8 requests in "
-          f"{engine.stats['launches']} launch(es); probs vs plain stem "
-          f"{diff:.3e}; accuracy served {acc_served:.3f}, unfolded eval "
-          f"{acc_eval:.3f}")
+          f"{engine.stats['launches']} launch(es); stem vs plain stem "
+          f"{rep['n_diff']} counts differ (at half counts); probs vs the "
+          f"backbone on the kernel's stem {own_diff:.3e} (8 images), vs "
+          f"plain stem {diff:.3e} ({int(agree.sum())} images whose stem "
+          f"counts all agree); accuracy served {acc_served:.3f}, unfolded "
+          f"eval {acc_eval:.3f}")
 
 
 def time_backward_kernels(torch, bwd, flush):
@@ -532,9 +600,9 @@ def time_train_step(torch, train, flush):
     params, bn = state["params"], state["bn"]
     dev = params["fc"]["w"].device
     images, labels = _batch_to(batch, dev)
-    counted = {fn: fn.launches for fn in (conv.p2m_conv_fused,
-                                          backward.p2m_bwd_dx,
+    counted = {fn: fn.launches for fn in (backward.p2m_bwd_dx,
                                           backward.p2m_bwd_dw)}
+    counted_stem = stem_launches(conv)
     cfg = CONFIG.p2m
     theta = params["stem"]["theta"].detach().requires_grad_(True)
     stem_p = {**params["stem"], "theta": theta}
@@ -547,12 +615,11 @@ def time_train_step(torch, train, flush):
     g_stem = torch.randn_like(stem_out)
     parts = {"batch to the card (numpy, pageable; host clock)": wall_ms(
         torch, lambda: _batch_to(batch, dev), flush)}
-    parts["stem forward (conv B1 + BN + clamp)"] = cuda_ms(
-        torch, stem_fwd, flush)
-    parts["stem backward (forward + backward, less the forward)"] = cuda_ms(torch, lambda: torch.autograd
-                                                 .grad(stem_fwd(), theta,
-                                                       g_stem), flush) - \
-        parts["stem forward (conv B1 + BN + clamp)"]
+    fwd_name = "stem forward (conv, B1 or B2 as tuned, + BN + clamp)"
+    parts[fwd_name] = cuda_ms(torch, stem_fwd, flush)
+    parts["stem backward (forward + backward, less the forward)"] = cuda_ms(
+        torch, lambda: torch.autograd.grad(stem_fwd(), theta, g_stem),
+        flush) - parts[fwd_name]
     w = _flat_weights(theta.detach(), cfg)
     zero = torch.zeros(cfg.out_channels, device=dev)
     parts["  im2col of the images"] = cuda_ms(
@@ -565,7 +632,7 @@ def time_train_step(torch, train, flush):
         torch, lambda: torch.autograd.grad(x, im, gx, retain_graph=True),
         flush)
     w.requires_grad_(True)
-    parts["  conv Function forward + backward (B1, im2col, B3, B4, "
+    parts["  conv Function forward + backward (B1 or B2, im2col, B3, B4, "
           "col2im)"] = cuda_ms(torch, lambda: torch.autograd.grad(
               p2m_conv(images, w, zero, default_pixel_model(), cfg.adc,
                        "raw", cfg.kernel, cfg.stride).sum(), w), flush)
@@ -591,6 +658,8 @@ def time_train_step(torch, train, flush):
         torch, lambda: opt.update(grads, state["opt"], params, 6), flush)
     for fn, n in counted.items():
         fn.launches = n
+    (conv.p2m_conv_fused.launches,
+     conv.p2m_conv_fused.launches_pipelined) = counted_stem.values()
     for name, ms in parts.items():
         print(f"[9] train step part: {name}: {ms:.3f} ms")
     print(f"[9] train step, whole: {train['step_ms']:.3f} ms (host clock)")
@@ -695,13 +764,13 @@ def stream_path(torch, np, dev, params, bn):
                            device=dev, **kw)
         torch.cuda.synchronize()
         gated.p2m_conv_fused_gated.launches = 0
-        conv.p2m_conv_fused.launches = 0
+        reset_stem_launches(conv)
         t0 = time.perf_counter()
         drive(eng, requests(), on_undrained="raise")
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = {"p2m_conv_fused_gated": gated.p2m_conv_fused_gated.launches,
-                  "p2m_conv_fused": conv.p2m_conv_fused.launches}
+                  **stem_launches(conv)}
         done = eng.completed
         check(sorted(r.uid for r in done) == list(range(len(frames)))
               and not eng.failed and not eng.evicted,
@@ -737,10 +806,13 @@ def stream_path(torch, np, dev, params, bn):
     check(g_eng.stem_path == "gated" and d_eng.stem_path == "gated",
           f"auto picked {g_eng.stem_path} on the card")
     ticks = g_eng.stats["launches"]
-    check(g_counts == {"p2m_conv_fused_gated": ticks, "p2m_conv_fused": 0},
+    check(g_counts == {"p2m_conv_fused_gated": ticks, "p2m_conv_fused": 0,
+                       "p2m_conv_fused_pipelined": 0},
           f"gated engine launches {g_counts} in {ticks} ticks")
-    check(w_counts == {"p2m_conv_fused_gated": 0,
-                       "p2m_conv_fused": w_eng.stats["launches"]},
+    # the where engine's stem is B1 or B2, as the tuner picked
+    check(w_counts["p2m_conv_fused_gated"] == 0
+          and w_counts["p2m_conv_fused"]
+          + w_counts["p2m_conv_fused_pipelined"] == w_eng.stats["launches"],
           f"where engine launches {w_counts}")
     check(ledgers(g_done) == ledgers(w_done),
           "gated and where engines' ledgers differ")
@@ -771,8 +843,9 @@ def stream_path(torch, np, dev, params, bn):
           f"one 0); measured reduction vs dense "
           f"{summary['measured_reduction_vs_dense']:.6f}; B5 launched "
           f"{g_counts['p2m_conv_fused_gated']} times in {ticks} ticks, B1 "
-          f"0 times; the where engine launched B1 "
-          f"{w_counts['p2m_conv_fused']} times; frames made in "
+          f"and B2 0 times; the where engine launched B1 "
+          f"{w_counts['p2m_conv_fused']} and B2 "
+          f"{w_counts['p2m_conv_fused_pipelined']} times; frames made in "
           f"{setup_s:.2f} s")
 
     # A corrupted cache: slot 0's stem becomes NaN after its first frame.
@@ -833,7 +906,8 @@ def time_stream(torch, np, dev, stream, flush, adc):
     qkw = dict(kernel=k, stride=s, mode="quant", v_lsb=adc.v_lsb,
                max_count=adc.max_count)
     counted = (gated.p2m_conv_fused_gated.launches,
-               conv.p2m_conv_fused.launches)
+               conv.p2m_conv_fused.launches,
+               conv.p2m_conv_fused.launches_pipelined)
     img_bytes = 4 * size * size * 3
     out_bytes = 4 * ho * ho * n
     rows = {}
@@ -934,7 +1008,8 @@ def time_stream(torch, np, dev, stream, flush, adc):
         parts["forward, gated, with the results to the host (host clock)"] = \
             wall_ms(torch, lambda: [t.cpu() for t in fwd(images, cached,
                                                           rerun)[1:]], flush)
-    gated.p2m_conv_fused_gated.launches, conv.p2m_conv_fused.launches = counted
+    (gated.p2m_conv_fused_gated.launches, conv.p2m_conv_fused.launches,
+     conv.p2m_conv_fused.launches_pipelined) = counted
     for name, ms in parts.items():
         print(f"[9] stream tick part: {name}: {ms:.3f} ms")
     row = rows["0.5"]
@@ -1424,6 +1499,524 @@ def time_lm(torch, np, dev, lm, wkv_in, flush):
             "bound_by": b_by, "library_ms": None}
 
 
+def stem_launches(conv) -> dict:
+    """B1's and B2's launch counts (the tuner picks either for a stem)."""
+    return {"p2m_conv_fused": conv.p2m_conv_fused.launches,
+            "p2m_conv_fused_pipelined":
+                conv.p2m_conv_fused.launches_pipelined}
+
+
+def reset_stem_launches(conv) -> None:
+    conv.p2m_conv_fused.launches = 0
+    conv.p2m_conv_fused.launches_pipelined = 0
+
+
+def check_pipelined_kernel(torch, np, dev, serve_in, adc):
+    """Phase 3d: B2 (the pipelined ring) against B1, bit for bit, `out`
+    and `raw`, at depths 2, 3 and 8 (which clamps to k) and block_h 1, 2
+    and 4, in every mode, at the serving (8x560²x3, the engine's folded
+    stem), stream (4x560²x3) and training (32x560²x3, random weights)
+    shapes, and over random geometries with s < k, N in {5, 8, 24} and
+    dx 1-4.  Also against the plain twin at the serving shape.  Returns
+    that largest raw/relu difference."""
+    from repro_torch.configs.p2m_vww import CONFIG, TRAIN_BATCH
+    from repro_torch.kernels.p2m_conv import conv
+
+    rng = np.random.default_rng(SEED + 30)
+    size = CONFIG.image_size
+
+    def case(b, h, w, c, k, n, dw, dx):
+        coeffs = tuple(tuple(float(v) for v in rng.uniform(-1, 1, dx))
+                       for _ in range(dw))
+        imgs = torch.from_numpy(rng.random((b, h, w, c), np.float32)).to(dev)
+        wt = torch.from_numpy(rng.uniform(-0.4, 0.4, (k * k * c, n)).astype(
+            np.float32))
+        sh = torch.from_numpy(rng.uniform(-0.2, 0.2, n).astype(np.float32))
+        return imgs, conv.premix_rows(wt, coeffs, k).to(dev), sh.to(dev)
+
+    paper_imgs, wrows, shift = serve_in
+    train_imgs = torch.from_numpy(rng.random((TRAIN_BATCH, size, size, 3),
+                                             np.float32)).to(dev)
+    cases = [  # name, inputs, k, s
+        (f"serving {len(paper_imgs)}x{size}²", (paper_imgs, wrows, shift),
+         5, 5),
+        (f"stream 4x{size}²", (paper_imgs[:4].contiguous(), wrows, shift),
+         5, 5),
+        (f"training {TRAIN_BATCH}x{size}²", (train_imgs, wrows, shift), 5,
+         5),
+        ("k5 s3 N8 dx3", case(2, 64, 64, 3, 5, 8, 3, 3), 5, 3),
+        ("k4 s3 N5 dx1", case(3, 37, 41, 3, 4, 5, 3, 1), 4, 3),
+        ("k3 s2 N24 dx2", case(2, 33, 30, 3, 3, 24, 3, 2), 3, 2),
+        ("k5 s4 N24 dx4", case(2, 40, 43, 3, 5, 24, 4, 4), 5, 4),
+        ("k5 s2 N5 dx2", case(1, 50, 50, 3, 5, 5, 2, 2), 5, 2),
+        ("k4 s2 N8 dx4", case(4, 29, 31, 2, 4, 8, 3, 4), 4, 2),
+    ]
+    serve_err = 0.0
+    for name, (x, wr, sh), kk, ss in cases:
+        for mode in ("raw", "relu", "quant"):
+            kw = dict(kernel=kk, stride=ss, mode=mode, v_lsb=adc.v_lsb,
+                      max_count=adc.max_count, want_raw=True)
+            out1, raw1 = conv.p2m_conv_fused(x, wr, sh, **kw)
+            n_b2 = 0
+            for depth in (2, 3, 8):
+                for bh in (1, 2, 4):
+                    out2, raw2 = conv.p2m_conv_fused(
+                        x, wr, sh, block_h=bh, pipeline_depth=depth, **kw)
+                    torch.cuda.synchronize()
+                    check(torch.equal(out2, out1) and torch.equal(raw2, raw1),
+                          f"{name} {mode} depth {depth} block_h {bh}: B2 "
+                          "differs from B1")
+                    n_b2 += 1
+            line = (f"[3d] {name:17s} {mode:5s} {tuple(out1.shape)}: B2 == "
+                    f"B1 bitwise (out and raw) at depths 2, 3, 8 x block_h "
+                    f"1, 2, 4 ({n_b2} launches)")
+            if name.startswith("serving"):
+                ref_out, ref_raw = conv.p2m_conv_premixed_plain(
+                    x, wr, sh, **kw)
+                err = float((raw1 - ref_raw).abs().max())
+                if mode != "quant":
+                    err = max(err, float((out1 - ref_out).abs().max()))
+                    check(err <= RAW_TOL, f"{name}: B2 vs plain {err}")
+                serve_err = max(serve_err, err)
+                line += f"; vs plain {err:.3e}"
+            print(line)
+    del train_imgs
+    return serve_err
+
+
+def check_pipelined_grads(torch, np, dev):
+    """Phase 3e: at the training shape (32x560²x3, the train stem's raw
+    mode), `ops.p2m_conv` with pipeline_depth=2 and with 0 give the same
+    gradients for images, w and shift, bit for bit."""
+    from repro_torch.configs.p2m_vww import CONFIG, TRAIN_BATCH
+    from repro_torch.core.pixel_model import default_pixel_model
+    from repro_torch.kernels.p2m_conv import conv, ops
+
+    cfg = CONFIG.p2m
+    rng = np.random.default_rng(SEED + 31)
+    size = CONFIG.image_size
+    kk = cfg.kernel * cfg.kernel * cfg.in_channels
+    imgs = torch.from_numpy(rng.random((TRAIN_BATCH, size, size, 3),
+                                       np.float32)).to(dev)
+    wt = torch.from_numpy((rng.uniform(-1, 1, (kk, cfg.out_channels))
+                           * (3.0 / kk) ** 0.5).astype(np.float32)).to(dev)
+    sh = torch.from_numpy(rng.uniform(-0.2, 0.2, cfg.out_channels).astype(
+        np.float32)).to(dev)
+    ho = cfg.out_spatial(size)
+    ct = torch.from_numpy(rng.standard_normal(
+        (TRAIN_BATCH, ho, ho, cfg.out_channels)).astype(np.float32)).to(dev)
+    grads, counts = {}, {}
+    for depth in (0, 2):
+        ins = [t.clone().requires_grad_(True) for t in (imgs, wt, sh)]
+        before = stem_launches(conv)
+        out = ops.p2m_conv(*ins, default_pixel_model(), cfg.adc, "relu",
+                           cfg.kernel, cfg.stride, pipeline_depth=depth)
+        grads[depth] = torch.autograd.grad((out * ct).sum(), ins)
+        counts[depth] = {k: v - before[k]
+                         for k, v in stem_launches(conv).items()}
+    torch.cuda.synchronize()
+    check(counts[0] == {"p2m_conv_fused": 1, "p2m_conv_fused_pipelined": 0}
+          and counts[2] == {"p2m_conv_fused": 0,
+                            "p2m_conv_fused_pipelined": 1},
+          f"forward launches {counts}")
+    for name, a, b in zip(("images", "w", "shift"), grads[0], grads[2]):
+        check(torch.equal(a, b), f"d/d {name} differs between depth 2 and 0")
+    print(f"[3e] training shape {tuple(imgs.shape)}, relu: gradients for "
+          f"images, w and shift through p2m_conv at pipeline_depth 2 (B2) "
+          f"== at 0 (B1), bit for bit; forward launches {counts}")
+
+
+def tune_signatures(torch, dev, signatures):
+    """Phase 3f: the tuner at each signature (name -> get_conv_blocks
+    arguments), timed as the first call of a path would meet it; print
+    each decision record: every candidate with its shared-memory bytes and
+    time, and the winner.  Fails if a candidate failed.  Returns the
+    winners and the first-call seconds."""
+    from repro_torch.kernels.p2m_conv import tune
+
+    out = {}
+    for name, args in signatures.items():
+        n_before = len(tune.decision_records())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        best = tune.get_conv_blocks(*args, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        records = tune.decision_records()
+        check(len(records) == n_before + 1, f"{name}: no new decision")
+        rec = records[-1]
+        check(rec["n_failed"] == 0, f"{name}: candidates failed: "
+              f"{[e for e in rec['errors'] if e]}")
+        print(f"[3f] tuner at the {name} signature {args[:7]} "
+              f"mode {args[8]}: first call {seconds * 1e3:.1f} ms, winner "
+              f"{tuple(best)} ({rec['best_s'] * 1e3:.4f} ms); candidates "
+              f"(block_h, block_n, depth): smem bytes, ms:")
+        for cand, smem, t in zip(rec["candidates"], rec["smem_bytes"],
+                                 rec["times_s"]):
+            print(f"    {tuple(cand)}: {smem} B, {t * 1e3:.4f} ms")
+        out[name] = {"best": tuple(best), "first_call_s": seconds,
+                     "key": rec["key"]}
+    return out
+
+
+def check_matmul_kernel(torch, np, dev, adc):
+    """Phase 3g: B6 against its plain twin at (100,352, 75, 8) (8 images
+    at 112², the reference benchmark's shape) and (4096, 147, 32), in
+    every mode: raw and relu within 1e-5, quant by the count rule; and
+    `ops.p2m_matmul`'s gradients (B6 forward, B3 and B4 backward) against
+    autograd of `p2m_matmul_plain` in float64 within 1e-4 of the largest
+    value.  Returns the largest raw/relu difference at the first shape."""
+    from repro_torch.core.pixel_model import default_pixel_model
+    from repro_torch.kernels.p2m_conv import conv, kernel, ops
+
+    model = default_pixel_model()
+    coeffs = ops._coeff_tuple(model)
+    rng = np.random.default_rng(SEED + 32)
+    first_err = 0.0
+    for m, kk, n in ((100_352, 75, 8), (4096, 147, 32)):
+        x = torch.from_numpy(rng.random((m, kk), np.float32)).to(dev)
+        w = torch.from_numpy((rng.uniform(-1, 1, (kk, n)) * (3.0 / kk) ** 0.5)
+                             .astype(np.float32)).to(dev)
+        sh = torch.from_numpy(rng.uniform(-0.2, 0.2, n).astype(
+            np.float32)).to(dev)
+        line = f"[3g] p2m_matmul_fused at ({m}, {kk}, {n}):"
+        for mode in ("raw", "relu", "quant"):
+            out, raw = kernel.p2m_matmul_fused(
+                x, w, sh, coeffs=coeffs, mode=mode, v_lsb=adc.v_lsb,
+                max_count=adc.max_count, want_raw=True)
+            torch.cuda.synchronize()
+            ref_raw = kernel.p2m_matmul_raw_plain(x, w, coeffs)
+            ref_out = conv._epilogue_values(ref_raw, sh, mode=mode,
+                                            v_lsb=adc.v_lsb,
+                                            max_count=adc.max_count)
+            err = float((raw - ref_raw).abs().max())
+            check(err <= RAW_TOL, f"B6 ({m}, {kk}, {n}) raw differs by {err}")
+            if mode == "quant":
+                rep = conv.quant_disagreement(out, ref_out, ref_raw,
+                                              adc.v_lsb)
+                check(rep["max_count_diff"] <= 1 and rep["share"] <= 1e-4
+                      and rep["all_near_half"],
+                      f"B6 ({m}, {kk}, {n}) quant counts disagree: {rep}")
+                line += f" quant {rep['n_diff']} counts differ (raw {err:.1e})"
+            else:
+                err = max(err, float((out - ref_out).abs().max()))
+                check(err <= RAW_TOL, f"B6 ({m}, {kk}, {n}) {mode} differs "
+                      f"by {err}")
+                line += f" {mode} {err:.2e};"
+                if m == 100_352:
+                    first_err = max(first_err, err)
+        print(line)
+    m, kk, n = 20_000, 75, 8
+    x = torch.from_numpy(rng.random((m, kk), np.float32)).to(dev)
+    w = torch.from_numpy((rng.uniform(-1, 1, (kk, n)) * (3.0 / kk) ** 0.5)
+                         .astype(np.float32)).to(dev)
+    sh = torch.from_numpy(rng.uniform(-0.2, 0.2, n).astype(np.float32)).to(dev)
+    ct = torch.from_numpy(rng.standard_normal((m, n)).astype(
+        np.float32)).to(dev)
+    line = f"[3g] p2m_matmul gradients at ({m}, {kk}, {n}) vs float64 autograd:"
+    for mode in ("raw", "relu", "quant"):
+        ins = [t.clone().requires_grad_(True) for t in (x, w, sh)]
+        got = torch.autograd.grad(
+            (ops.p2m_matmul(*ins, model, adc, mode) * ct).sum(), ins)
+        ref_ins = [t.double().requires_grad_(True) for t in (x, w, sh)]
+        want = torch.autograd.grad(
+            (ops.p2m_matmul_plain(*ref_ins, model, adc,
+                                  "relu" if mode == "quant" else mode)
+             * ct.double()).sum(), ref_ins)
+        for name, a, b in zip(("x", "w", "shift"), got, want):
+            err = float((a.double() - b).abs().max())
+            scale = float(b.abs().max())
+            check(err <= 1e-4 * scale, f"p2m_matmul {mode} d/d {name}: "
+                  f"{err} of {scale}")
+            line += f" {mode} d{name} {err:.1e} of {scale:.1e};"
+    print(line)
+    return first_err
+
+
+def matmul_path(torch, np, dev, engine, images, adc):
+    """Phase 5d: the patch-level path (the reference's "patches + kernel"
+    tier): the serving batch's stem through `extract_patches` and
+    `ops.p2m_matmul` (B6, quant) with the engine's folded weights, held to
+    the deploy stem (B1/B2) by the count rule, and its gradients through
+    B3 and B4.  Returns B6's launches."""
+    from repro_torch.configs.p2m_vww import CONFIG
+    from repro_torch.core.p2m_conv import (
+        apply_p2m_conv_deploy,
+        extract_patches,
+    )
+    from repro_torch.kernels.p2m_conv import backward, conv, kernel, ops
+
+    cfg = CONFIG.p2m
+    dep = engine._deploy
+    b = images.shape[0]
+    ho = cfg.out_spatial(images.shape[1])
+    w = dep["w"].contiguous()
+    shift = dep["shift"].float().contiguous()
+    with torch.no_grad():
+        stem = apply_p2m_conv_deploy(dep, images, cfg)
+    torch.cuda.synchronize()
+    counted = {fn: fn.launches for fn in (backward.p2m_bwd_dx,
+                                          backward.p2m_bwd_dw)}
+    kernel.p2m_matmul_fused.launches = 0
+    x = extract_patches(images, cfg.kernel, cfg.stride).reshape(b * ho * ho,
+                                                                -1)
+    xg = x.contiguous().requires_grad_(True)
+    wg = w.clone().requires_grad_(True)
+    out = ops.p2m_matmul(xg, wg, shift, engine._pixel_model, adc, "quant")
+    grads = torch.autograd.grad(out.sum(), [xg, wg])
+    torch.cuda.synchronize()
+    launches = kernel.p2m_matmul_fused.launches
+    check(launches == 1, f"patch path launched B6 {launches} times")
+    for fn, n in counted.items():
+        check(fn.launches == n + 1, "patch path backward missed a kernel")
+        fn.launches = n
+    _, raw = conv.p2m_conv_premixed_plain(
+        images, dep["wrows"], torch.zeros_like(shift), kernel=cfg.kernel,
+        stride=cfg.stride, mode="raw", want_raw=True)
+    rep = conv.quant_disagreement(out.detach().reshape(stem.shape), stem,
+                                  raw, adc.v_lsb)
+    check(rep["max_count_diff"] <= 1 and rep["share"] <= 1e-4
+          and rep["all_near_half"], f"patch path vs deploy stem: {rep}")
+    check(all(bool(torch.isfinite(g).all()) for g in grads),
+          "patch path gradients not finite")
+    print(f"[5d] patch path: {tuple(x.shape)} patches of the serving batch "
+          f"through p2m_matmul (B6, quant): {launches} launch, "
+          f"{rep['n_diff']} counts differ from the deploy stem; its "
+          f"gradients through B3 and B4 finite")
+    return launches
+
+
+def engine_b2_pass(torch, np, dev, params, bn, reqs_fn, serve_key):
+    """Phase 5e: B2 inside an engine, whatever the tuner picked.  The
+    serving signature's tuner cache entry is set to a depth-0 winner (B1)
+    and then to a depth-2 winner (B2) by `tune.set_winner`, the way the
+    reference's tests reach it, and the same 24 requests are served
+    through a fresh `VisionEngine` each time; the probabilities must be
+    equal bit for bit.  Returns each pass's launch counts."""
+    from repro_torch.configs.p2m_vww import CONFIG
+    from repro_torch.kernels.p2m_conv import conv, tune
+    from repro_torch.serving import VisionEngine, drive
+
+    (rec,) = [r for r in tune.decision_records() if r["key"] == serve_key]
+    b2 = [tuple(c) for c in rec["candidates"] if c[2] >= 2]
+    b2_best = min(b2, key=lambda c: rec["times_s"][
+        rec["candidates"].index(list(c))])
+    b1 = [tuple(c) for c in rec["candidates"] if c[2] == 0][0]
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    probs, counts = {}, {}
+    try:
+        for name, winner in (("B1", b1), ("B2", b2_best)):
+            tune.set_winner(serve_key, winner)
+            eng = VisionEngine(params, bn, CONFIG, device=dev)
+            torch.cuda.synchronize()
+            reset_stem_launches(conv)
+            drive(eng, reqs_fn(), on_undrained="raise")
+            torch.cuda.synchronize()
+            counts[name] = stem_launches(conv)
+            done = eng.completed
+            check([r.uid for r in done] == list(range(len(done)))
+                  and not eng.failed, f"{name} pass: completion")
+            probs[name] = np.stack([r.probs for r in done])
+            print(f"[5e] {name} pass, serving winner {winner}: "
+                  f"{len(done)} requests in {eng.stats['launches']} "
+                  f"launches; launches {counts[name]}")
+    finally:
+        tune.set_winner(serve_key, rec["best"])
+        torch.backends.cudnn.deterministic = False
+    check(counts["B2"]["p2m_conv_fused_pipelined"] > 0
+          and counts["B2"]["p2m_conv_fused"] == 0
+          and counts["B1"]["p2m_conv_fused_pipelined"] == 0
+          and counts["B1"]["p2m_conv_fused"] > 0, f"launches {counts}")
+    check(np.array_equal(probs["B1"], probs["B2"]),
+          "B2 pass probabilities differ from the B1 pass's")
+    print(f"[5e] the B2 pass's probabilities equal the B1 pass's bit for "
+          f"bit ({probs['B2'].shape})")
+    return counts
+
+
+def check_faults(torch, np, dev):
+    """Phase 5f: the port's two fixed faults, on the card.  C1: a request
+    with prompt token ``cfg.padded_vocab`` fails alone at submit (SMOKE
+    rwkv), the others complete, and the same engine then serves a good
+    request.  C2: every kernel wrapper raises on an input that requires
+    grad under grad mode, and launches the same call under no_grad."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.p2m_conv import backward, conv, gated, kernel
+    from repro_torch.kernels.rwkv_wkv import kernel as wkv_kernel
+    from repro_torch.models.families import get_family
+    from repro_torch.serving import Request, ServeEngine, drive
+    from repro_torch.serving.engine import FAILED_TOKEN
+
+    cfg = get_smoke_config(LM_ARCH).replace(dtype=torch.float32)
+    params, _ = get_family(cfg).init(torch.Generator(dev).manual_seed(SEED),
+                                     cfg)
+    eng = ServeEngine(params, cfg, max_batch=2, max_len=64, prefill_chunk=4,
+                      device=dev)
+    good = [5, 17, 300, 2, 9]
+    reqs = [Request(uid=0, prompt=good, max_new_tokens=4),
+            Request(uid=1, prompt=[3, cfg.padded_vocab, 4],
+                    max_new_tokens=4),
+            Request(uid=2, prompt=good[::-1], max_new_tokens=4)]
+    statuses = [eng.submit(r) for r in reqs]
+    drive(eng, [], on_undrained="raise")
+    torch.cuda.synchronize()
+    check(statuses[1] == FAILED_TOKEN and eng.failed == [reqs[1]]
+          and sorted(r.uid for r in eng.completed) == [0, 2],
+          f"C1: statuses {statuses}, failed {[r.uid for r in eng.failed]}, "
+          f"completed {[r.uid for r in eng.completed]}")
+    drive(eng, [Request(uid=3, prompt=good, max_new_tokens=4)],
+          on_undrained="raise")
+    torch.cuda.synchronize()
+    check(eng.completed[-1].uid == 3
+          and eng.completed[-1].output == reqs[0].output,
+          "C1: the engine did not serve the next request")
+    print(f"[5f] C1: token {cfg.padded_vocab} (= padded_vocab) fails its "
+          f"request alone at submit ({statuses[1]}); the other 2 completed, "
+          f"then a good request served with the same tokens as before")
+
+    rng = np.random.default_rng(SEED + 33)
+
+    def t(*shape):
+        return torch.from_numpy(rng.random(shape, np.float32)).to(dev)
+
+    x, shift = t(2, 20, 20, 3), t(8)
+    wrows = t(5, 45, 8) - 0.5
+    xg = x.clone().requires_grad_(True)
+    r, k, v = t(1, 16, 2, 16), t(1, 16, 2, 16), t(1, 16, 2, 16)
+    lw, u, s0 = -t(1, 16, 2, 16), t(2, 16), t(1, 2, 16, 16)
+    mx, mw, mg = t(64, 75), t(75, 8) - 0.5, t(64, 8) - 0.5
+    coeffs = ((0.5, 0.1, 0.0), (0.2, 0.0, 0.0), (0.1, 0.0, 0.0))
+    calls = {
+        "p2m_conv_fused (B1)": lambda: conv.p2m_conv_fused(
+            xg, wrows, shift, kernel=5, stride=5),
+        "p2m_conv_fused (B2)": lambda: conv.p2m_conv_fused(
+            xg, wrows, shift, kernel=5, stride=5, pipeline_depth=2),
+        "p2m_conv_fused_gated (B5)": lambda: gated.p2m_conv_fused_gated(
+            xg, wrows, shift, torch.zeros((2, 4, 4, 8), device=dev),
+            torch.ones(2, dtype=torch.bool, device=dev), kernel=5, stride=5),
+        "p2m_matmul_fused (B6)": lambda: kernel.p2m_matmul_fused(
+            mx, mw.clone().requires_grad_(True), t(8), coeffs=coeffs),
+        "p2m_bwd_dx (B3)": lambda: backward.p2m_bwd_dx(
+            mg.clone().requires_grad_(True), mw, mx, coeffs),
+        "p2m_bwd_dw (B4)": lambda: backward.p2m_bwd_dw(
+            mg.clone().requires_grad_(True), mw, mx, coeffs),
+        "wkv_fused (B7)": lambda: wkv_kernel.wkv_fused(
+            r, k.clone().requires_grad_(True), v, lw, u, s0),
+    }
+    counted = (stem_launches(conv), gated.p2m_conv_fused_gated.launches,
+               kernel.p2m_matmul_fused.launches, backward.p2m_bwd_dx.launches,
+               backward.p2m_bwd_dw.launches, wkv_kernel.wkv_fused.launches)
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as exc:
+            check("requires grad" in str(exc), f"C2 {name}: {exc}")
+        else:
+            check(False, f"C2: {name} launched on an input that requires "
+                  "grad under grad mode")
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+    (conv.p2m_conv_fused.launches,
+     conv.p2m_conv_fused.launches_pipelined) = counted[0].values()
+    (gated.p2m_conv_fused_gated.launches, kernel.p2m_matmul_fused.launches,
+     backward.p2m_bwd_dx.launches, backward.p2m_bwd_dw.launches,
+     wkv_kernel.wkv_fused.launches) = counted[1:]
+    print(f"[5f] C2: {', '.join(calls)} each raise on an input that "
+          f"requires grad under grad mode, and launch under no_grad")
+
+
+def time_pipelined(torch, flush, serve_in, adc, tuned_best, b1_row):
+    """Phase 9, B2: at the serving shape (quant), B2 at depths 2 and 3
+    with block_h 1, 2, 4 and the tuned block_h, in turns with B1 (B1, B2s,
+    B1), beside B1's bound, plain and library rows.  Returns B2's row of
+    the kernels line (its ms at the fastest setting), without launches and
+    error."""
+    from repro_torch.kernels.p2m_conv import conv
+
+    paper_imgs, wrows, shift = serve_in
+    counted = stem_launches(conv)
+    qkw = dict(kernel=5, stride=5, mode="quant", v_lsb=adc.v_lsb,
+               max_count=adc.max_count)
+    b1 = [cuda_ms(torch, lambda: conv.p2m_conv_fused(
+        paper_imgs, wrows, shift, **qkw), flush)]
+    bhs = sorted({1, 2, 4} | ({tuned_best[0]} if tuned_best[0] else set()))
+    times = {}
+    for depth in (2, 3):
+        for bh in bhs:
+            times[(bh, depth)] = cuda_ms(torch, lambda: conv.p2m_conv_fused(
+                paper_imgs, wrows, shift, block_h=bh, pipeline_depth=depth,
+                **qkw), flush)
+    b1.append(cuda_ms(torch, lambda: conv.p2m_conv_fused(
+        paper_imgs, wrows, shift, **qkw), flush))
+    (conv.p2m_conv_fused.launches,
+     conv.p2m_conv_fused.launches_pipelined) = counted.values()
+    best = min(times, key=times.get)
+    print(f"[9] p2m_conv_fused pipelined (B2) at {tuple(paper_imgs.shape)} "
+          f"quant, (block_h, depth): " + ", ".join(
+              f"{key} {ms:.4f} ms" for key, ms in times.items())
+          + f"; B1 {b1[0]:.4f} and {b1[1]:.4f} ms (before and after); tuned "
+          f"winner {tuned_best}; bound {b1_row['bound_ms']:.4f} ms by "
+          f"{b1_row['bound_by']}")
+    return {"ms": times[best], "plain_ms": b1_row["plain_ms"],
+            "bound_ms": b1_row["bound_ms"], "bound_by": b1_row["bound_by"],
+            "library_ms": b1_row["library_ms"],
+            "ms_by_block_h_depth": {f"{k[0]},{k[1]}": v
+                                    for k, v in times.items()},
+            "b1_ms_in_turns": b1}
+
+
+def time_matmul(torch, np, dev, flush, adc):
+    """Phase 9, B6 at (100,352, 75, 8), quant, with the tuner's blocks,
+    beside its plain twin, one `torch.matmul` of the power concat with the
+    premixed W̃ (the raw accumulation) and the bound.  Returns B6's row of
+    the kernels line, without launches and error."""
+    from repro_torch.core.pixel_model import default_pixel_model
+    from repro_torch.kernels.p2m_conv import conv, kernel, ops, tune
+
+    coeffs = ops._coeff_tuple(default_pixel_model())
+    m, kk, n = 100_352, 75, 8
+    rng = np.random.default_rng(SEED + 34)
+    x = torch.from_numpy(rng.random((m, kk), np.float32)).to(dev)
+    w = torch.from_numpy((rng.uniform(-1, 1, (kk, n)) * (3.0 / kk) ** 0.5)
+                         .astype(np.float32)).to(dev)
+    sh = torch.from_numpy(rng.uniform(-0.2, 0.2, n).astype(np.float32)).to(dev)
+    counted = kernel.p2m_matmul_fused.launches
+    t0 = time.perf_counter()
+    blocks = tune.get_matmul_blocks(m, kk, n, coeffs, "quant", device=dev)
+    tune_s = time.perf_counter() - t0
+    rec = tune.decision_records()[-1]
+    check(rec["n_failed"] == 0, f"B6 tuner: {rec['errors']}")
+    bm, bn, bk = blocks
+    kw = dict(coeffs=coeffs, mode="quant", v_lsb=adc.v_lsb,
+              max_count=adc.max_count)
+    ms = cuda_ms(torch, lambda: kernel.p2m_matmul_fused(
+        x, w, sh, block_m=bm, block_n=bn, block_k=bk, **kw), flush)
+    plain_ms = cuda_ms(torch, lambda: ops.p2m_matmul_plain(
+        x, w, sh, default_pixel_model(), adc, "quant"), flush)
+    dx = len(coeffs[0])
+    xcat = torch.cat([x ** (j + 1) for j in range(dx)], dim=1)
+    wcat = conv.premix_weights(w, coeffs).reshape(dx * kk, n)
+    lib_err = float((torch.matmul(xcat, wcat)
+                     - kernel.p2m_matmul_raw_plain(x, w, coeffs)).abs().max())
+    check(lib_err <= 1e-4, f"B6 library yardstick differs by {lib_err}")
+    library_ms = cuda_ms(torch, lambda: torch.matmul(xcat, wcat), flush)
+    kernel.p2m_matmul_fused.launches = counted
+    nbytes = 4 * (x.numel() + w.numel() + sh.numel() + m * n)
+    flops = 2 * m * kk * n * dx
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"[9] p2m_matmul_fused at ({m}, {kk}, {n}) quant, blocks "
+          f"{blocks} (tuner first call {tune_s * 1e3:.1f} ms over "
+          f"{len(rec['candidates'])} candidates): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library matmul of the power concat "
+          f"{library_ms:.4f} ms (raw err {lib_err:.1e}); bound {b_ms:.4f} ms "
+          f"by {b_by} ({nbytes} bytes, {flops} FLOP)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms,
+            "blocks": list(blocks)}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1437,12 +2030,18 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
 
-    from repro_torch.configs.p2m_vww import CONFIG, SERVE_MAX_BATCH
+    from repro_torch.configs.p2m_vww import (
+        CONFIG,
+        SERVE_MAX_BATCH,
+        TRAIN_BATCH,
+    )
     from repro_torch.core.p2m_conv import apply_p2m_conv_deploy
     from repro_torch.data import SyntheticVWW
     from repro_torch.kernels import _build
     from repro_torch.configs import get_config
-    from repro_torch.kernels.p2m_conv import backward, conv
+    from repro_torch.kernels.p2m_conv import backward, conv, tune
+    from repro_torch.kernels.p2m_conv import kernel as mm_kernel
+    from repro_torch.kernels.p2m_conv.ops import _coeff_tuple
     from repro_torch.kernels.rwkv_wkv import kernel as wkv_kernel
     from repro_torch.models.mobilenetv2 import (
         apply_mnv2_backbone,
@@ -1463,14 +2062,15 @@ def main() -> int:
 
     # ------------------------------------------------------- phase 2
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, together
+    with ThreadPoolExecutor(4) as pool:  # one nvcc per source, together
         for job in [pool.submit(conv.build_p2m_conv),
                     pool.submit(backward.build_p2m_bwd),
+                    pool.submit(mm_kernel.build_p2m_matmul),
                     pool.submit(wkv_kernel.build_wkv)]:
             job.result()
-    print(f"[2] built the three sources in {time.perf_counter() - t0:.2f} s "
+    print(f"[2] built the four sources in {time.perf_counter() - t0:.2f} s "
           "with loading")
-    for name in ("p2m_conv", "p2m_bwd", "wkv"):
+    for name in ("p2m_conv", "p2m_bwd", "p2m_matmul", "wkv"):
         seconds, report = _build.BUILD_INFO[name]
         print(f"[2] {name}.cu: nvcc {seconds:.2f} s")
         for line in report.splitlines():
@@ -1550,6 +2150,16 @@ def main() -> int:
                                    paper_imgs[:4].contiguous(), wrows, shift,
                                    rand_case, adc)
     wkv_err, wkv_in = check_wkv_kernel(torch, np, dev)
+    serve_in = (paper_imgs, wrows, shift)
+    pipe_err = check_pipelined_kernel(torch, np, dev, serve_in, adc)
+    check_pipelined_grads(torch, np, dev)
+    coeffs = _coeff_tuple(engine._pixel_model)
+    sig = (size, size, 3, cfg.out_channels, k, s, coeffs)
+    tuned = tune_signatures(torch, dev, {
+        "serving": (B, *sig, "quant"),
+        "stream": (4, *sig, "quant"),
+        "training": (TRAIN_BATCH, *sig, "raw")})
+    mm_err = check_matmul_kernel(torch, np, dev, adc)
 
     # ------------------------------------------------------- phase 4
     bwd_err, bwd = check_backward_kernels(torch, np, dev)
@@ -1559,21 +2169,25 @@ def main() -> int:
     data = SyntheticVWW(image_size=size, batch=n_req, seed=SEED + 1)
     images = data.batch_at(0)["images"]
     arrivals = [0] * 8 + [1] * 3 + [2] * 6 + [4] * 7
-    reqs = [VisionRequest(uid=i, image=images[i], arrival_tick=t)
-            for i, t in enumerate(arrivals)]
-    conv.p2m_conv_fused.launches = 0
+
+    def vision_requests():
+        return [VisionRequest(uid=i, image=images[i], arrival_tick=t)
+                for i, t in enumerate(arrivals)]
+
+    reset_stem_launches(conv)
     t0 = time.perf_counter()
-    drive(engine, reqs, on_undrained="raise")
+    drive(engine, vision_requests(), on_undrained="raise")
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = conv.p2m_conv_fused.launches
+    serve_launches = stem_launches(conv)
+    launches = sum(serve_launches.values())
     done = engine.completed
     check([r.uid for r in done] == list(range(n_req)),
           f"completion order {[r.uid for r in done]}")
     check(not engine.failed and not engine.evicted,
           f"failed {len(engine.failed)}, evicted {len(engine.evicted)}")
     check(launches == engine.stats["launches"] and launches > 0,
-          f"kernel launches {launches} != engine launches "
+          f"kernel launches {serve_launches} != engine launches "
           f"{engine.stats['launches']}")
     probs = np.stack([r.probs for r in done])
     check(probs.shape == (n_req, CONFIG.num_classes)
@@ -1603,15 +2217,20 @@ def main() -> int:
         mode="raw", want_raw=True)
     rep = conv.quant_disagreement(stem_k, stem_p, stem_raw, adc.v_lsb)
     print(f"[5] served {len(done)} requests in {engine.stats['launches']} "
-          f"launches ({main_s:.2f} s), kernel launches {launches}; "
+          f"launches ({main_s:.2f} s) with the tuned stem "
+          f"{tuned['serving']['best']}, kernel launches {serve_launches}; "
           f"stem vs patches reference: {rep['n_diff']} counts differ")
     check(rep["max_count_diff"] <= 1 and rep["share"] <= 1e-4
           and rep["all_near_half"], f"stem vs patches: {rep}")
+    mm_launches = matmul_path(torch, np, dev, engine, paper_imgs, adc)
+    pass_launches = engine_b2_pass(torch, np, dev, params, bn,
+                                   vision_requests, tuned["serving"]["key"])
 
     stream = stream_path(torch, np, dev, params, bn)
 
     lm = lm_path(torch, np, dev,
                  get_config(LM_ARCH).replace(dtype=torch.float32))
+    check_faults(torch, np, dev)
 
     # ------------------------------------------------------- phase 6
     train = train_path(torch, np, dev)
@@ -1628,6 +2247,7 @@ def main() -> int:
     qkw = dict(kernel=k, stride=s, mode="quant", v_lsb=adc.v_lsb,
                max_count=adc.max_count)
     counted = conv.p2m_conv_fused.launches
+    counted_b2 = conv.p2m_conv_fused.launches_pipelined
     kernel_ms = cuda_ms(torch, lambda: conv.p2m_conv_fused(
         paper_imgs, wrows, shift, **qkw), flush)
     wrapper_ms = wall_ms(torch, lambda: conv.p2m_conv_fused(
@@ -1673,7 +2293,11 @@ def main() -> int:
     engine_ms = (engine.stats["wall_us"] - before_us) / n_launch / 1e3
     first_ms = engine.completed[0].launch_wall_us / 1e3
     print(f"[9] engine: {engine_ms:.3f} ms per launch of {B} images "
-          f"(warm, {n_launch} launches); first launch {first_ms:.3f} ms")
+          f"(warm, {n_launch} launches, tuned stem "
+          f"{tuned['serving']['best']}); first launch {first_ms:.3f} ms "
+          f"(the tuner ran before it: "
+          f"{tuned['serving']['first_call_s'] * 1e3:.1f} ms at this "
+          f"signature, phase 3f)")
     # Where a warm launch goes, each part timed alone as `_launch` runs
     # it: the host assembles the batch and copies it to the card, then
     # the stem and the backbone run.
@@ -1694,35 +2318,58 @@ def main() -> int:
         backbone_ms = cuda_ms(torch, lambda: apply_mnv2_backbone(
             engine._params, engine._bn, stem_out, CONFIG), flush)
     conv.p2m_conv_fused.launches = counted
+    conv.p2m_conv_fused.launches_pipelined = counted_b2
     print(f"[9] launch parts: host batch + copy {host_ms:.3f} ms, stem "
           f"{stem_ms:.3f} ms, backbone {backbone_ms:.3f} ms (device, "
           f"launch gaps included); sum "
           f"{host_ms + stem_ms + backbone_ms:.3f} of {engine_ms:.3f} ms")
 
+    b1_row = {"plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "library_ms": library_ms}
+    pipe_row = time_pipelined(torch, flush, serve_in, adc,
+                              tuned["serving"]["best"], b1_row)
+    mm_row = time_matmul(torch, np, dev, flush, adc)
     gated_row = time_stream(torch, np, dev, stream, flush, adc)
     bwd_rows = time_backward_kernels(torch, bwd, flush)
     time_train_step(torch, train, flush)
     wkv_row = time_lm(torch, np, dev, lm, wkv_in, flush)
 
     # ------------------------------------------------------- phase 10
+    # B1 and B2 run, as the tuner picks, on the serving run, the training
+    # run and the stream run's where path; the two forced passes of phase
+    # 5e run each once through the engine.
+    stem_paths = {}
+    for name in ("p2m_conv_fused", "p2m_conv_fused_pipelined"):
+        stem_paths[name] = {
+            "serve": serve_launches[name],
+            "serve_forced": pass_launches["B1" if name == "p2m_conv_fused"
+                                          else "B2"][name],
+            "train": train["launches"][name],
+            "stream": stream["where_launches"][name]}
+        check(sum(stem_paths[name].values()) > 0,
+              f"{name} launched no time on the main paths")
     kernels = [{
         "name": "p2m_conv_fused",
         "route": "cuda",
         "source": "src/repro_torch/kernels/p2m_conv/csrc/p2m_conv.cu",
         "replaces": "src/repro/kernels/p2m_conv/conv.py:466",
-        # B1 runs on three paths: the serving run's, the training run's and
-        # the stream run's on the where path
-        "launches": (launches + train["launches"]["p2m_conv_fused"]
-                     + stream["where_launches"]["p2m_conv_fused"]),
-        "launches_by_path": {
-            "serve": launches, "train": train["launches"]["p2m_conv_fused"],
-            "stream": stream["where_launches"]["p2m_conv_fused"]},
+        "launches": sum(stem_paths["p2m_conv_fused"].values()),
+        "launches_by_path": stem_paths["p2m_conv_fused"],
         "max_abs_err": paper_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+    }, {
+        "name": "p2m_conv_fused_pipelined",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/p2m_conv/csrc/p2m_conv.cu",
+        "replaces": "src/repro/kernels/p2m_conv/conv.py:438",
+        "launches": sum(stem_paths["p2m_conv_fused_pipelined"].values()),
+        "launches_by_path": stem_paths["p2m_conv_fused_pipelined"],
+        "max_abs_err": pipe_err,
+        **pipe_row,
     }]
     for name, replaces in (
             ("p2m_bwd_dx", "src/repro/kernels/p2m_conv/backward.py:95"),
@@ -1750,6 +2397,17 @@ def main() -> int:
         **gated_row,
     })
     kernels.append({
+        "name": "p2m_matmul_fused",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/p2m_conv/csrc/p2m_matmul.cu",
+        "replaces": "src/repro/kernels/p2m_conv/kernel.py:159",
+        # the patch-level path of phase 5d
+        "launches": mm_launches,
+        "launches_by_path": {"patches": mm_launches},
+        "max_abs_err": mm_err,
+        **mm_row,
+    })
+    kernels.append({
         "name": "wkv_fused",
         "route": "cuda",
         "source": "src/repro_torch/kernels/rwkv_wkv/csrc/wkv.cu",
@@ -1760,6 +2418,7 @@ def main() -> int:
         "max_abs_err": wkv_err,
         **wkv_row,
     })
+    check(len(kernels) == 7, f"{len(kernels)} kernels in the line")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

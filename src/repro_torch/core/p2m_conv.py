@@ -12,8 +12,9 @@ full-scale saturation, optionally integer-quantized.  Two forms:
 
 Conv implementations (``impl``):
 
-* ``"cuda"`` — the hand-written CUDA kernels: the forward kernel, and in
-  the train form the closed-form backward kernels through
+* ``"cuda"`` — the hand-written CUDA kernels: the forward kernel the
+  tuner picks (B1, or B2's ring; `kernels/p2m_conv/tune.py`), and in the
+  train form the closed-form backward kernels through
   `ops.P2MConvFunction`; the default for a CUDA tensor, and an error for a
   CPU tensor.
 * ``"plain"`` — the kernels' plain PyTorch twin (autograd through it in
@@ -32,6 +33,7 @@ import torch
 
 from repro_torch.core.adc import ADCConfig, clip
 from repro_torch.core.pixel_model import PixelModel, default_pixel_model
+from repro_torch.kernels.p2m_conv import tune
 from repro_torch.kernels.p2m_conv.conv import (
     p2m_conv_fused,
     p2m_conv_plain,
@@ -233,9 +235,19 @@ def apply_p2m_conv_deploy(
         xf = patches.reshape(b * patches.shape[1], -1)
         out = p2m_matmul_plain(xf, deploy["w"], shift, model, adc, mode=mode)
         return out.reshape(b, ho, wo, cfg.out_channels)
+    coeffs = _coeff_tuple(model)
     wrows = deploy.get("wrows")
     if wrows is None:
-        wrows = premix_rows(deploy["w"], _coeff_tuple(model), cfg.kernel)
-    conv = p2m_conv_fused if impl == "cuda" else p2m_conv_premixed_plain
-    return conv(images, wrows, shift, kernel=cfg.kernel, stride=cfg.stride,
-                mode=mode, v_lsb=adc.v_lsb, max_count=adc.max_count)
+        wrows = premix_rows(deploy["w"], coeffs, cfg.kernel)
+    kw = dict(kernel=cfg.kernel, stride=cfg.stride, mode=mode,
+              v_lsb=adc.v_lsb, max_count=adc.max_count)
+    if impl == "plain":
+        return p2m_conv_premixed_plain(images, wrows, shift, **kw)
+    # The tuner's blocks and depth, as the reference's deploy path takes
+    # them through `ops.p2m_conv` (B1, or B2's ring).
+    b, h, w, c = images.shape
+    bh, bn, depth = tune.get_conv_blocks(b, h, w, c, cfg.out_channels,
+                                         cfg.kernel, cfg.stride, coeffs,
+                                         mode, device=images.device)
+    return p2m_conv_fused(images, wrows, shift, block_h=bh, block_n=bn,
+                          pipeline_depth=depth, **kw)

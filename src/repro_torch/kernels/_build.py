@@ -16,6 +16,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 BUILD_DIR = Path(__file__).resolve().parent / ".build"
 
 #: No ``--use_fast_math``: the quant epilogue needs IEEE division and
@@ -65,3 +67,21 @@ def load_library(name: str, source: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     _LOADED[name] = lib
     return lib
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when autograd would record a kernel launch.
+
+    A kernel writes its outputs through ctypes, outside the autograd
+    graph, so its result would carry no gradient without a word, while
+    the plain twin on the CPU is differentiable.  Each wrapper calls this
+    on its CUDA path: with grad mode on, an input that requires grad is
+    an error.  Differentiate through the op's autograd Function
+    (`P2MConvFunction`, `p2m_matmul`), or call the wrapper under
+    `torch.no_grad` as the engines do."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward of its own and an "
+            f"input requires grad; call it through its autograd Function "
+            f"or under torch.no_grad()")

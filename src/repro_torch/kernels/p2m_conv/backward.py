@@ -27,7 +27,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import load_library
+from repro_torch.kernels._build import load_library, refuse_grad
 from repro_torch.kernels.p2m_conv.conv import ceil_to, premix_weights
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "p2m_bwd.cu"
@@ -177,6 +177,7 @@ def _check_smem(nbytes: int, what: str) -> None:
 
 
 def _launch_dx(g, wmix, x):
+    refuse_grad("p2m_bwd_dx", g, wmix, x)
     if wmix.dim() != 3:
         raise ValueError(f"wmix {tuple(wmix.shape)} is not (dx, K, N)")
     m, k, n = _check_shapes(g, wmix[0], x)
@@ -204,6 +205,7 @@ def dw_split(m: int) -> tuple[int, int]:
 
 
 def _launch_dw(g, w, x, coeffs):
+    refuse_grad("p2m_bwd_dw", g, w, x)
     m, k, n = _check_shapes(g, w, x)
     _check_cuda(g.device, g=g, w=w, x=x)
     lib = _library()
@@ -235,8 +237,9 @@ def p2m_bwd_dx(g: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
     `premix_weights`, x (M, K) the im2col matrix.
 
     A CUDA tensor goes to the CUDA kernel, which raises on a wrong dtype,
-    a non-contiguous input, a device mismatch or dx outside 1..4.  A CPU
-    tensor goes to `p2m_bwd_dx_plain`.  ``p2m_bwd_dx.launches`` counts
+    a non-contiguous input, a device mismatch, dx outside 1..4 and an
+    input that requires grad under grad mode (`_build.refuse_grad`).  A
+    CPU tensor goes to `p2m_bwd_dx_plain`.  ``p2m_bwd_dx.launches`` counts
     kernel launches.
     """
     wmix = w if w.dim() == 3 else premix_weights(w, coeffs)
@@ -252,7 +255,8 @@ def p2m_bwd_dw(g: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
 
     A CUDA tensor goes to the CUDA kernels (a split-M pass and a fixed-order
     sum, no atomics), which raise on a wrong dtype, a non-contiguous input,
-    a device mismatch or a degree outside 1..4.  A CPU tensor goes to
+    a device mismatch, a degree outside 1..4 and an input that requires
+    grad under grad mode (`_build.refuse_grad`).  A CPU tensor goes to
     `p2m_bwd_dw_plain`.  ``p2m_bwd_dw.launches`` counts kernel launches
     (one per call, for the pair of passes).
     """

@@ -11,10 +11,14 @@ one contraction ``[x, x², …] @ W̃[ki]`` over that row's k·C patch values,
 then the CDS/ADC epilogue (BN pre-load shift, counter ReLU clamp,
 optional integer-exact quantization).  No patch tensor is formed.
 
-`p2m_conv_fused` is the wrapper of the hand-written CUDA kernel
-(``csrc/p2m_conv.cu``) that replaces the TPU kernel `p2m_conv_pallas`:
-for a CUDA tensor it launches the kernel or raises; for a tensor on the
-CPU it runs `p2m_conv_premixed_plain`, the kernel's plain PyTorch twin.
+`p2m_conv_fused` is the wrapper of the hand-written CUDA kernels
+(``csrc/p2m_conv.cu``) that replace the TPU kernel `p2m_conv_pallas`:
+``pipeline_depth=0`` runs B1 (its grid path), ``pipeline_depth ≥ 2`` runs
+B2, the same function through a ``cp.async`` ring over the kernel rows
+(its ``pipeline_depth ≥ 2`` path), bit for bit equal to B1.  The tuner
+(`tune.py`) picks the depth and the blocks.  For a CUDA tensor the
+wrapper launches a kernel or raises; for a tensor on the CPU it runs
+`p2m_conv_premixed_plain`, the kernels' plain PyTorch twin.
 """
 from __future__ import annotations
 
@@ -24,13 +28,19 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import load_library
+from repro_torch.kernels._build import load_library, refuse_grad
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "p2m_conv.cu"
 _MODES = {"raw": 0, "relu": 1, "quant": 2}
 #: Shared memory a block may use for its N range of W̃ without opting in.
 _SMEM_BYTES = 48 * 1024
 _CHUNK = 8  # outputs a thread keeps in registers at a time (csrc kChunk)
+#: Shared memory a block may use on an H100 (227 KB), opted in above 48 KB.
+SMEM_MAX = 232_448
+#: B2: most pixels (threads) a block takes, and most outputs a thread
+#: keeps live across the kernel rows (csrc kPipeThreads, kMaxTileChunks).
+PIPE_THREADS = 512
+PIPE_MAX_TILE = 32
 
 
 def conv_out_spatial(size: int, kernel: int, stride: int) -> int:
@@ -190,6 +200,10 @@ def _library():
     lib.p2m_conv_forward.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
         + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    lib.p2m_conv_pipelined_forward.restype = ctypes.c_int
+    lib.p2m_conv_pipelined_forward.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     lib.p2m_conv_gated_forward.restype = ctypes.c_int
     lib.p2m_conv_gated_forward.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
@@ -204,11 +218,13 @@ def build_p2m_conv() -> None:
     _library()
 
 
-def _n_tile(n: int, rows: int) -> int:
-    """Outputs per block: all of N when its W̃ fits the shared-memory
-    budget, else the largest whole number of register chunks that does."""
-    if rows * ceil_to(n, _CHUNK) * 4 <= _SMEM_BYTES:
-        return n
+def _n_tile(n: int, rows: int, block_n: int | None = None) -> int:
+    """B1's outputs per block: all of N (or ``block_n`` of them, in whole
+    register chunks) when their W̃ fits the shared-memory budget, else the
+    largest whole number of register chunks that does."""
+    want = n if block_n is None else min(n, ceil_to(block_n, _CHUNK))
+    if rows * ceil_to(want, _CHUNK) * 4 <= _SMEM_BYTES:
+        return want
     tile = (_SMEM_BYTES // (rows * 4 * _CHUNK)) * _CHUNK
     if tile < _CHUNK:
         raise ValueError(f"W̃ of {rows} rows does not fit shared memory "
@@ -216,11 +232,47 @@ def _n_tile(n: int, rows: int) -> int:
     return tile
 
 
+def check_pipeline_depth(depth: int) -> None:
+    """0 (B1) or ≥ 2 (B2's ring); depth 1 would wait on its own copy at
+    every kernel row, so it is refused, as the reference refuses it."""
+    if depth == 1 or depth < 0:
+        raise ValueError("pipeline_depth must be 0 (B1) or >= 2 (the "
+                         f"pipelined ring, B2), got {depth}")
+
+
+def pipelined_tile(n: int, block_n: int | None) -> int:
+    """B2's outputs per block: ``block_n`` (all of N by default) in whole
+    register chunks, at most `PIPE_MAX_TILE`."""
+    want = n if block_n is None else min(n, block_n)
+    return min(ceil_to(want, _CHUNK), PIPE_MAX_TILE)
+
+
+def default_block_h(rows: int, wo: int) -> int:
+    """B2's rows of B·Ho a block when none is asked for: the most, a
+    power of two, whose pixels fill at most 256 threads."""
+    bh = 1
+    while bh * 2 * wo <= 256 and bh * 2 <= rows:
+        bh *= 2
+    return bh
+
+
+def pipelined_smem_bytes(wo: int, c: int, k: int, s: int, dx: int,
+                         block_h: int, n_tile: int, nbuf: int) -> int:
+    """Shared memory of one B2 block (csrc ``pipelined_smem``): ``nbuf``
+    ring slots, each an image band of ``block_h`` rows of
+    ((Wo−1)·s + k)·C floats (rows padded to 16 bytes) and a W̃ slab of
+    dx·k·C × ``n_tile`` floats."""
+    band_ld = ceil_to(((wo - 1) * s + k) * c, 4)
+    return 4 * nbuf * (block_h * band_ld
+                       + dx * k * c * ceil_to(n_tile, _CHUNK))
+
+
 def _check_launch(tensors: dict, *, kernel: int, stride: int, mode: str):
     """Validate what the CUDA kernels take: ``tensors`` (name → tensor,
     ``images`` and ``wrows`` among them) all float32, contiguous, on the
     images' CUDA device; a known mode; a geometry and a dx the kernel
-    takes.  Returns (lib, (B, H, W, C), N, dx, n_tile)."""
+    takes.  Returns (lib, (B, H, W, C), N, dx); each kernel sizes its own
+    N tile."""
     images, wrows = tensors["images"], tensors["wrows"]
     if not images.is_cuda:
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got images "
@@ -252,57 +304,97 @@ def _check_launch(tensors: dict, *, kernel: int, stride: int, mode: str):
     if not 1 <= dx <= lib.p2m_conv_max_dx():
         raise ValueError(f"dx={dx} outside the kernel's compiled range "
                          f"1..{lib.p2m_conv_max_dx()}")
-    return lib, (b, h, w_dim, c), n, dx, _n_tile(n, k * dx * kc)
+    return lib, (b, h, w_dim, c), n, dx
 
 
 def _launch_cuda(images, wrows, shift, *, kernel, stride, mode, v_lsb,
-                 max_count, want_raw):
-    lib, (b, h, w_dim, c), n, dx, n_tile = _check_launch(
+                 max_count, want_raw, block_h, block_n, pipeline_depth):
+    refuse_grad("p2m_conv_fused", images, wrows, shift)
+    lib, (b, h, w_dim, c), n, dx = _check_launch(
         {"images": images, "wrows": wrows, "shift": shift}, kernel=kernel,
         stride=stride, mode=mode)
     k, s = kernel, stride
     ho = conv_out_spatial(h, k, s)
     wo = conv_out_spatial(w_dim, k, s)
+    pipelined = pipeline_depth >= 2
+    if pipelined:
+        bh = min(block_h or default_block_h(b * ho, wo), b * ho)
+        if bh * wo > PIPE_THREADS:
+            raise ValueError(f"block_h={bh} x Wo={wo} pixels exceed B2's "
+                             f"{PIPE_THREADS} threads a block")
+        n_tile = pipelined_tile(n, block_n)
+        nbuf = min(pipeline_depth, k)
+        smem = pipelined_smem_bytes(wo, c, k, s, dx, bh, n_tile, nbuf)
+        if smem > SMEM_MAX:
+            raise ValueError(f"B2 with block_h={bh}, depth {nbuf} needs "
+                             f"{smem} bytes of shared memory, more than a "
+                             f"block has ({SMEM_MAX})")
+    else:
+        n_tile = _n_tile(n, k * dx * k * c, block_n)
     out = torch.empty((b, ho, wo, n), dtype=torch.float32,
                       device=images.device)
     raw = torch.empty_like(out) if want_raw else None
+    ptrs = (images.data_ptr(), wrows.data_ptr(), shift.data_ptr(),
+            out.data_ptr(), raw.data_ptr() if want_raw else None)
     with torch.cuda.device(images.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.p2m_conv_forward(
-            images.data_ptr(), wrows.data_ptr(), shift.data_ptr(),
-            out.data_ptr(), raw.data_ptr() if want_raw else None,
-            b, h, w_dim, c, k, s, n, dx, n_tile, _MODES[mode], v_lsb,
-            max_count, max_count * v_lsb, stream)
+        if pipelined:
+            err = lib.p2m_conv_pipelined_forward(
+                *ptrs, b, h, w_dim, c, k, s, n, dx, n_tile, bh, nbuf,
+                _MODES[mode], v_lsb, max_count, max_count * v_lsb, stream)
+        else:
+            err = lib.p2m_conv_forward(
+                *ptrs, b, h, w_dim, c, k, s, n, dx, n_tile, _MODES[mode],
+                v_lsb, max_count, max_count * v_lsb, stream)
     if err != 0:
-        raise RuntimeError(f"p2m_conv CUDA launch failed: cudaError {err}")
-    p2m_conv_fused.launches += 1
+        raise RuntimeError(f"p2m_conv CUDA launch failed ("
+                           f"{'B2' if pipelined else 'B1'}): cudaError {err}")
+    if pipelined:
+        p2m_conv_fused.launches_pipelined += 1
+    else:
+        p2m_conv_fused.launches += 1
     return (out, raw) if want_raw else out
 
 
 def p2m_conv_fused(images: torch.Tensor, wrows: torch.Tensor,
                    shift: torch.Tensor, *, kernel: int, stride: int,
                    mode: str = "relu", v_lsb: float = 1.0 / 255.0,
-                   max_count: int = 255, want_raw: bool = False):
+                   max_count: int = 255, want_raw: bool = False,
+                   block_h: int | None = None, block_n: int | None = None,
+                   pipeline_depth: int = 0):
     """Fused P²M conv: NHWC images (B, H, W, C) in [0, 1], premixed
     ``wrows`` (k, dx·k·C, N) from `premix_rows`, ``shift`` (N,) BN counter
     pre-load in volts → (B, Ho, Wo, N), plus the pre-epilogue accumulation
     when ``want_raw``.
 
+    ``pipeline_depth`` 0 runs B1, ≥ 2 runs B2 with a ring of
+    ``min(pipeline_depth, kernel)`` slots; 1 and negative depths raise
+    `ValueError` on every device.  ``block_h``: B2's rows of B·Ho a block
+    (B1 tiles pixels itself and ignores it).  ``block_n``: outputs a block
+    computes (B2 at most `PIPE_MAX_TILE`).  The result does not depend on
+    any of the three, bit for bit.
+
     A CUDA tensor goes to the CUDA kernel, which raises on a wrong dtype,
-    a non-contiguous input or a dx above its compiled maximum.  A CPU
-    tensor goes to `p2m_conv_premixed_plain`.  ``p2m_conv_fused.launches``
-    counts kernel launches.
+    a non-contiguous input, a dx above its compiled maximum, blocks it
+    does not take, and an input that requires grad under grad mode
+    (`_build.refuse_grad`).  A CPU tensor goes to
+    `p2m_conv_premixed_plain`.  ``p2m_conv_fused.launches`` counts B1's
+    launches, ``p2m_conv_fused.launches_pipelined`` B2's.
     """
+    check_pipeline_depth(pipeline_depth)
     if images.is_cuda:
         return _launch_cuda(images, wrows, shift, kernel=kernel,
                             stride=stride, mode=mode, v_lsb=v_lsb,
-                            max_count=max_count, want_raw=want_raw)
+                            max_count=max_count, want_raw=want_raw,
+                            block_h=block_h, block_n=block_n,
+                            pipeline_depth=pipeline_depth)
     return p2m_conv_premixed_plain(images, wrows, shift, kernel=kernel,
                                    stride=stride, mode=mode, v_lsb=v_lsb,
                                    max_count=max_count, want_raw=want_raw)
 
 
 p2m_conv_fused.launches = 0
+p2m_conv_fused.launches_pipelined = 0
 
 
 def quant_disagreement(out: torch.Tensor, ref_out: torch.Tensor,

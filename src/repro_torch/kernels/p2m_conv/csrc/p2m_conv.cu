@@ -40,8 +40,31 @@
 // of the cache, coalesced.  At the stream shape (4 x 560 x 560 x 3, N = 8)
 // it moves 16.7 MB with every slot re-run and 3.2 MB with none: bytes
 // bound, and near launch latency either way.
-
+//
+// The pipelined conv (p2m_conv_pipelined_forward, B2) replaces the TPU
+// kernel src/repro/kernels/p2m_conv/conv.py::p2m_conv_pallas with
+// pipeline_depth >= 2: _pipelined_body driving
+// _conv_kernel_fast_pipelined (s == k) and _conv_kernel_general_pipelined
+// (s < k).  Same function as B1, bit for bit, raw included.  A block covers
+// block_h rows of the flattened (B*Ho) output axis times all Wo pixels, one
+// thread a pixel, and one N tile of at most 32 outputs, all of them live in
+// the thread's registers across the kernel rows (B1 instead loops over N
+// chunks outside its kernel-row loop).  A ring of min(depth, k) shared-memory
+// slots holds, per kernel row ki, the block's image band (block_h rows of
+// ((Wo-1)*s + k)*C contiguous floats: the window of every pixel of the row,
+// at any stride) and that row's dx*kC x n_tile slab of W~.  The ring is
+// filled with cp.async (16-byte copies when the rows are 16-byte aligned,
+// 4-byte copies otherwise), one commit group per kernel row; slot ki % nbuf
+// is refilled with row ki + nbuf once every thread has drained it, as
+// _pipelined_body does.  Per pixel the arithmetic is B1's in B1's order
+// (e ascending, j inner, a per-row part, then acc += part with ki
+// ascending), so B2 equals B1 bit for bit; tiling does not enter a pixel's
+// arithmetic.  Bytes bound like B1: the ring makes each image byte one
+// coalesced copy into shared memory instead of B1's per-thread 60-byte
+// reads, and overlaps the next rows' copies with this row's FMAs.
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -223,6 +246,228 @@ int dispatch(const Args& a, int dx, void* stream) {
   }
 }
 
+// ---------------------------------------------------------------- B2
+
+constexpr int kPipeThreads = 512;  // most threads (pixels) a B2 block has
+constexpr int kMaxTileChunks = 4;  // a B2 thread keeps <= 32 outputs live
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most `pending` of this thread's commit groups are in
+// flight.  wait_group takes an immediate: above 7 it waits for more
+// groups than needed, which is correct, only less overlapped.
+__device__ __forceinline__ void cp_async_wait_pending(int pending) {
+  switch (pending) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
+}
+
+template <int DX, int NCH>
+__global__ void __launch_bounds__(kPipeThreads)
+p2m_conv_pipelined_kernel(const float* __restrict__ images,
+                          const float* __restrict__ wrows,
+                          const float* __restrict__ shift,
+                          float* __restrict__ out, float* __restrict__ raw_out,
+                          int H, int W, int C, int k, int s, int Ho, int Wo,
+                          int N, int block_h, int nbuf, long long rows_total,
+                          int vec16, int mode, float v_lsb, float max_count,
+                          float full_scale) {
+  constexpr int kTile = NCH * kChunk;  // this block's N tile, padded
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int kc = k * C;
+  const int band = ((Wo - 1) * s + k) * C;  // floats of one band row
+  const int band_ld = (band + 3) & ~3;      // rows start 16-byte aligned
+  const int x_floats = block_h * band_ld;
+  const int slot_floats = x_floats + DX * kc * kTile;
+  const int n0 = blockIdx.y * kTile;
+  const int n_end = min(kTile, N - n0);
+  const long long row0 = (long long)blockIdx.x * block_h;
+  const int rows_here = (int)min((long long)block_h, rows_total - row0);
+
+  // W~ columns past N stay zero in every slot: the copies never write them.
+  const int pad = kTile - n_end;
+  for (int idx = threadIdx.x; idx < nbuf * DX * kc * pad;
+       idx += blockDim.x) {
+    const int slot = idx / (DX * kc * pad);
+    const int rem = idx - slot * DX * kc * pad;
+    const int r = rem / pad;
+    smem[slot * slot_floats + x_floats + r * kTile + n_end + rem - r * pad] =
+        0.0f;
+  }
+
+  // Start the copies of kernel row ki into ring slot `slot`.
+  auto stage = [&](int slot, int ki) {
+    float* xs = smem + slot * slot_floats;
+    float* ws = xs + x_floats;
+    const int units = vec16 ? band / 4 : band;
+    for (int idx = threadIdx.x; idx < rows_here * units;
+         idx += blockDim.x) {
+      const int r = idx / units;
+      const int u = idx - r * units;
+      const long long row = row0 + r;
+      const long long b = row / Ho;
+      const int oh = (int)(row - b * Ho);
+      const float* src =
+          images + ((b * H + (long long)oh * s + ki) * W) * C;
+      if (vec16) {
+        cp_async16(xs + r * band_ld + 4 * u, src + 4 * u);
+      } else {
+        cp_async4(xs + r * band_ld + u, src + u);
+      }
+    }
+    const float* wk = wrows + (long long)ki * DX * kc * N + n0;
+    for (int idx = threadIdx.x; idx < DX * kc * n_end; idx += blockDim.x) {
+      const int r = idx / n_end;
+      const int c = idx - r * n_end;
+      cp_async4(ws + r * kTile + c, wk + (long long)r * N + c);
+    }
+  };
+
+  for (int ki = 0; ki < nbuf; ++ki) {  // fill the ring
+    stage(ki, ki);
+    cp_async_commit();
+  }
+
+  const int r = threadIdx.x / Wo;  // this thread's row of the block
+  const int ow = threadIdx.x - r * Wo;
+  const bool live = r < rows_here;
+  float acc[kTile];
+#pragma unroll
+  for (int q = 0; q < kTile; ++q) acc[q] = 0.0f;
+
+  for (int ki = 0; ki < k; ++ki) {
+    const int slot = ki % nbuf;
+    cp_async_wait_pending(min(k - ki - 1, nbuf - 1));  // row ki has landed
+    __syncthreads();
+    if (live) {
+      const float* xp = smem + slot * slot_floats + r * band_ld + ow * s * C;
+      const float* wk = smem + slot * slot_floats + x_floats;
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch) {
+        float part[kChunk];
+#pragma unroll
+        for (int q = 0; q < kChunk; ++q) part[q] = 0.0f;
+        for (int e = 0; e < kc; ++e) {
+          const float x = xp[e];
+          float xpow = x;
+#pragma unroll
+          for (int j = 0; j < DX; ++j) {
+            const float4* wv = reinterpret_cast<const float4*>(
+                wk + (j * kc + e) * kTile + ch * kChunk);
+            const float4 w0 = wv[0];
+            const float4 w1 = wv[1];
+            part[0] = fmaf(xpow, w0.x, part[0]);
+            part[1] = fmaf(xpow, w0.y, part[1]);
+            part[2] = fmaf(xpow, w0.z, part[2]);
+            part[3] = fmaf(xpow, w0.w, part[3]);
+            part[4] = fmaf(xpow, w1.x, part[4]);
+            part[5] = fmaf(xpow, w1.y, part[5]);
+            part[6] = fmaf(xpow, w1.z, part[6]);
+            part[7] = fmaf(xpow, w1.w, part[7]);
+            xpow *= x;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kChunk; ++q) acc[ch * kChunk + q] += part[q];
+      }
+    }
+    __syncthreads();  // every thread is done with the slot: refill it
+    if (ki + nbuf < k) {
+      stage(slot, ki + nbuf);
+      cp_async_commit();
+    }
+  }
+
+  if (!live) return;
+  const long long o = ((row0 + r) * Wo + ow) * N + n0;
+#pragma unroll
+  for (int q = 0; q < kTile; ++q) {
+    if (q < n_end) {
+      if (raw_out != nullptr) raw_out[o + q] = acc[q];
+      out[o + q] = epilogue(acc[q], shift[n0 + q], mode, v_lsb, max_count,
+                            full_scale);
+    }
+  }
+}
+
+// Shared memory of one B2 block, in bytes (the wrapper computes the same).
+size_t pipelined_smem(int Wo, int C, int k, int s, int dx, int block_h,
+                      int n_tile, int nbuf) {
+  const int band_ld = ((((Wo - 1) * s + k) * C) + 3) & ~3;
+  const int tile = (n_tile + kChunk - 1) / kChunk * kChunk;
+  return sizeof(float) * (size_t)nbuf *
+         ((size_t)block_h * band_ld + (size_t)dx * k * C * tile);
+}
+
+template <int DX, int NCH>
+cudaError_t launch_pipelined(const Args& a, int block_h, int nbuf,
+                             cudaStream_t stream) {
+  const int Ho = (a.H - a.k) / a.s + 1;
+  const int Wo = (a.W - a.k) / a.s + 1;
+  const long long rows = (long long)a.B * Ho;
+  const int threads = (block_h * Wo + 31) / 32 * 32;
+  const int band = ((Wo - 1) * a.s + a.k) * a.C;
+  const int vec16 = (reinterpret_cast<uintptr_t>(a.images) % 16 == 0) &&
+                    (a.W * a.C) % 4 == 0 && band % 4 == 0;
+  const size_t smem =
+      pipelined_smem(Wo, a.C, a.k, a.s, DX, block_h, NCH * kChunk, nbuf);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        p2m_conv_pipelined_kernel<DX, NCH>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((unsigned)((rows + block_h - 1) / block_h),
+                  (unsigned)((a.N + NCH * kChunk - 1) / (NCH * kChunk)), 1u);
+  p2m_conv_pipelined_kernel<DX, NCH><<<grid, threads, smem, stream>>>(
+      a.images, a.wrows, a.shift, a.out, a.raw, a.H, a.W, a.C, a.k, a.s, Ho,
+      Wo, a.N, block_h, nbuf, rows, vec16, a.mode, a.v_lsb,
+      (float)a.max_count, a.full_scale);
+  return cudaGetLastError();
+}
+
+template <int DX>
+cudaError_t dispatch_chunks(const Args& a, int block_h, int nbuf,
+                            cudaStream_t st) {
+  switch ((a.n_tile + kChunk - 1) / kChunk) {
+    case 1: return launch_pipelined<DX, 1>(a, block_h, nbuf, st);
+    case 2: return launch_pipelined<DX, 2>(a, block_h, nbuf, st);
+    case 3: return launch_pipelined<DX, 3>(a, block_h, nbuf, st);
+    case kMaxTileChunks:
+      return launch_pipelined<DX, kMaxTileChunks>(a, block_h, nbuf, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // C entry point, loaded with ctypes.  All pointers are device pointers of
@@ -252,6 +497,35 @@ extern "C" int p2m_conv_gated_forward(const float* images, const float* wrows,
   const Args a{images, wrows, shift, cached, rerun, out, nullptr, B, H, W, C,
                k, s, N, n_tile, mode, v_lsb, max_count, full_scale};
   return dispatch<true>(a, dx, stream);
+}
+
+// The pipelined conv (B2): B1's function through a cp.async ring of
+// nbuf = min(depth, k) slots over the kernel rows, block_h rows of B*Ho a
+// block, n_tile (<= 32) outputs a block.  Same conventions as
+// p2m_conv_forward.  block_h * Wo <= kPipeThreads, n_tile <= 32 (the
+// wrapper's PIPE_THREADS and PIPE_MAX_TILE).
+extern "C" int p2m_conv_pipelined_forward(
+    const float* images, const float* wrows, const float* shift, float* out,
+    float* raw, int B, int H, int W, int C, int k, int s, int N, int dx,
+    int n_tile, int block_h, int nbuf, int mode, float v_lsb, int max_count,
+    float full_scale, void* stream) {
+  const Args a{images, wrows, shift, nullptr, nullptr, out, raw, B, H, W, C,
+               k, s, N, n_tile, mode, v_lsb, max_count, full_scale};
+  const int Wo = (W - k) / s + 1;
+  if (B < 1 || C < 1 || k < 1 || s < 1 || H < k || W < k || N < 1 ||
+      n_tile < 1 || n_tile > kMaxTileChunks * kChunk || block_h < 1 ||
+      (long long)block_h * Wo > kPipeThreads || nbuf < 1 || nbuf > k ||
+      mode < kRaw || mode > kQuant) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dx) {
+    case 1: return (int)dispatch_chunks<1>(a, block_h, nbuf, st);
+    case 2: return (int)dispatch_chunks<2>(a, block_h, nbuf, st);
+    case 3: return (int)dispatch_chunks<3>(a, block_h, nbuf, st);
+    case kMaxDx: return (int)dispatch_chunks<kMaxDx>(a, block_h, nbuf, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Largest dx the kernel is compiled for; the wrapper checks against it.

@@ -20,9 +20,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._build import refuse_grad
 from repro_torch.kernels.p2m_conv.conv import (
     _MODES,
     _check_launch,
+    _n_tile,
     conv_out_spatial,
     p2m_conv_premixed_plain,
 )
@@ -44,9 +46,11 @@ def p2m_conv_gated_plain(images: torch.Tensor, wrows: torch.Tensor,
 
 def _launch_gated(images, wrows, shift, cached, rerun, *, kernel, stride,
                   mode, v_lsb, max_count):
-    lib, (b, h, w_dim, c), n, dx, n_tile = _check_launch(
+    refuse_grad("p2m_conv_fused_gated", images, wrows, shift, cached)
+    lib, (b, h, w_dim, c), n, dx = _check_launch(
         {"images": images, "wrows": wrows, "shift": shift,
          "cached": cached}, kernel=kernel, stride=stride, mode=mode)
+    n_tile = _n_tile(n, kernel * dx * kernel * c)
     ho = conv_out_spatial(h, kernel, stride)
     wo = conv_out_spatial(w_dim, kernel, stride)
     if cached.shape != (b, ho, wo, n):
@@ -87,7 +91,8 @@ def p2m_conv_fused_gated(images: torch.Tensor, wrows: torch.Tensor,
 
     A CUDA tensor goes to the CUDA kernel, which raises on a wrong dtype,
     device or contiguity, a ``cached`` or ``rerun`` of the wrong shape, or
-    a dx above its compiled maximum.  A CPU tensor goes to
+    a dx above its compiled maximum, and on an input that requires grad
+    under grad mode (`_build.refuse_grad`).  A CPU tensor goes to
     `p2m_conv_gated_plain`.  ``p2m_conv_fused_gated.launches`` counts
     kernel launches.
     """

@@ -16,7 +16,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import load_library
+from repro_torch.kernels._build import load_library, refuse_grad
 from repro_torch.kernels.rwkv_wkv.ref import WKV_CHUNK, wkv_chunked_plain
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv.cu"
@@ -76,6 +76,7 @@ def _check_launch(r, k, v, lw, u, state, chunk: int):
 
 
 def _launch_cuda(r, k, v, lw, u, state, chunk):
+    refuse_grad("wkv_fused", r, k, v, lw, u, state)
     lib, (b, s, h, d) = _check_launch(r, k, v, lw, u, state, chunk)
     y = torch.empty_like(r)
     s_out = torch.empty_like(state)
@@ -98,7 +99,9 @@ def wkv_fused(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B,H,D,D) float32 → (y (B,S,H,D), final state (B,H,D,D)).
 
     A CUDA tensor goes to the CUDA kernel; a CPU tensor to
-    `wkv_chunked_plain` (module docstring)."""
+    `wkv_chunked_plain` (module docstring).  The kernel has no backward
+    yet: on the card, an input that requires grad under grad mode raises
+    (`_build.refuse_grad`)."""
     if r.is_cuda:
         return _launch_cuda(r, k, v, lw, u, state, chunk)
     return wkv_chunked_plain(r, k, v, lw, u, state, chunk)

@@ -36,6 +36,10 @@ from repro_torch.serving.scheduler import ScheduledRequest, SlotEngine
 from repro_torch.serving.vision import _tree_to, resolve_device
 from repro_torch.tree import tree_leaves
 
+#: Status ``submit`` returns for a request with a prompt token outside
+#: the embedding table: it fails at the door, alone (see `submit`).
+FAILED_TOKEN = "failed-token-out-of-range"
+
 
 @dataclasses.dataclass
 class Request(ScheduledRequest):
@@ -176,6 +180,26 @@ class ServeEngine(SlotEngine):
         self._slot_pos = np.zeros(max_batch, np.int64)
         self._slot_cursor = np.zeros(max_batch, np.int64)  # prompt cursor
 
+    def submit(self, req) -> str:
+        """Enqueue as `SlotEngine.submit` does, after checking every
+        prompt token against the embedding table's rows.
+
+        A token ≥ ``cfg.padded_vocab`` or < −``cfg.padded_vocab`` fails
+        the request here, onto the ``failed`` ledger with failure
+        ``"token"``, and ``submit`` returns `FAILED_TOKEN`.  The index
+        never reaches the device: torch indexing raises on the CPU, which
+        would fail every request of the tick, and asserts on CUDA, which
+        leaves the context unusable.  (The reference's ``jnp.take`` fills
+        the row with NaN; here the request fails instead.)  Negative
+        tokens wrap to the table's last rows, as in both frameworks."""
+        v = self.cfg.padded_vocab
+        for prompt in self._prompts(req):
+            if any(not -v <= int(t) < v for t in prompt):
+                req.submitted_tick = self.tick
+                self._fail(None, req, "token")
+                return FAILED_TOKEN
+        return super().submit(req)
+
     # ------------------------------------------------- adapter hooks
 
     def _reset_slot(self, i: int) -> None:
@@ -195,6 +219,10 @@ class ServeEngine(SlotEngine):
     # which one generation appends to.
     def _prompt(self, req) -> list[int]:
         return req.prompt
+
+    def _prompts(self, req) -> list[list[int]]:
+        """Every prompt the request will feed the model."""
+        return [req.prompt]
 
     def _gen(self, req) -> list[int]:
         return req.output

@@ -76,6 +76,9 @@ class SessionEngine(ServeEngine):
     def _gen(self, req: SessionRequest) -> list[int]:
         return req.outputs[req.turn]
 
+    def _prompts(self, req: SessionRequest) -> list[list[int]]:
+        return req.turns
+
     def _on_admit(self, i: int, req: SessionRequest) -> None:
         super()._on_admit(i, req)  # zero state + cursors: fresh session
         req.turn = 0

@@ -35,7 +35,7 @@ from repro_torch.serving import (
     SessionRequest,
     greedy_generate,
 )
-from repro_torch.serving.engine import _decode_step_for
+from repro_torch.serving.engine import FAILED_TOKEN, _decode_step_for
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -94,6 +94,57 @@ def test_engine_matches_reference_engine(lm, chunk):
                   for i, p in enumerate(prompts)])
     assert len(done) == 6
     assert _ledger(done) == _ledger(ref)
+
+
+@pytest.mark.parametrize("bad_token", ["padded_vocab", "below"])
+def test_out_of_range_prompt_token_fails_alone(lm, bad_token):
+    """A prompt token outside the embedding table fails that request at
+    submit, alone; the others' tokens equal the reference engine's, which
+    embeds the bad row as NaN (`jnp.take`) and serves it.  A token of -1
+    wraps to the last row, as in both frameworks."""
+    _, cfg, _, _ = lm
+    v = cfg.padded_vocab
+    bad = v if bad_token == "padded_vocab" else -v - 1
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 512, n).tolist() for n in (4, 9, 6, 3)]
+    prompts[1][4] = bad
+    prompts[3][0] = -1
+    kw = dict(max_batch=2, max_len=64, prefill_chunk=4)
+    eng = _engine(lm, **kw)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=4)
+            for i, p in enumerate(prompts)]
+    statuses = [eng.submit(r) for r in reqs]
+    assert statuses == ["admitted", FAILED_TOKEN, "admitted", "admitted"]
+    done = eng.run(on_undrained="raise")
+    assert eng.failed == [reqs[1]] and reqs[1].failure == "token"
+    assert sorted(r.uid for r in done) == [0, 2, 3]
+    ref = _serve(_ref_engine(lm, **kw),
+                 [JRequest(uid=i, prompt=p, max_new_tokens=4)
+                  for i, p in enumerate(prompts) if i != 1 or
+                  bad_token == "padded_vocab"])
+    ref_out = {r.uid: r.output for r in ref}
+    for r in done:
+        assert r.output == ref_out[r.uid], r.uid
+    # the engine serves on
+    again = eng.run([Request(uid=9, prompt=prompts[0], max_new_tokens=4)],
+                    on_undrained="raise")
+    assert again[-1].uid == 9 and again[-1].output == ref_out[0]
+
+
+def test_out_of_range_session_token_fails_alone(lm):
+    _, cfg, _, _ = lm
+    rng = np.random.default_rng(6)
+    turns = [_turns(rng, 2) for _ in range(3)]
+    turns[1][1][0] = cfg.padded_vocab  # in the second turn
+    eng = _sessions(lm, max_batch=2, max_len=256, prefill_chunk=4)
+    reqs = [SessionRequest(uid=i, turns=t, max_new_tokens=3)
+            for i, t in enumerate(turns)]
+    assert [eng.submit(r) for r in reqs][1] == FAILED_TOKEN
+    done = eng.run(on_undrained="raise")
+    assert eng.failed == [reqs[1]]
+    assert sorted(r.uid for r in done) == [0, 2]
+    for r in done:
+        assert r.outputs == _reference_session(lm, r.turns, 3), r.uid
 
 
 def test_engine_matches_single_request_decode(lm):
