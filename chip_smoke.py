@@ -18,9 +18,11 @@ no result:
    over masks (all re-run, all skip, mixed, one slot), at the stream
    shape, at s < k and at Ho = 1, in every mode;
 3c. hold the chunked WKV kernel (B7) against its plain version at the LM
-   serving tick's shape (8, 64, 40, 64) and at S in {1, 15, 17, 100} x D
-   in {16, 64}, from a random initial state, within 1e-4 of the largest
-   |plain|; a row whose lw and k are all zero keeps its state bit for bit;
+   serving tick's shape (8, 64, 40, 64), at S in {1, 15, 17, 100} x D
+   in {16, 64}, at S = 0 and 64, at D = 33, and on unaligned views (also
+   bitwise equal to the aligned inputs' result), from a random initial
+   state, within 1e-4 of the largest |plain|; a row whose lw and k are
+   all zero keeps its state bit for bit;
 3d. hold the pipelined conv (B2, `p2m_conv_fused(pipeline_depth>=2)`)
    against B1 bit for bit, `out` and `raw`, at depths 2, 3 and 8 (clamped
    to k) x block_h 1, 2, 4, in every mode, at the serving, stream and
@@ -97,8 +99,9 @@ no result:
    blocks);
    the vision engine's time per launch and its parts; the stream
    engines' time per tick and its parts; the train step's time and its
-   parts; B7 at the serving tick's shape, and the LM engine's time per
-   prefill and per decode tick with their parts;
+   parts; B7 at the serving tick's shape (with its launch geometry:
+   blocks, threads, shared memory and its one ring depth), and the LM
+   engine's time per prefill and per decode tick with their parts;
 10. one JSON line ``{"kernels": [...]}`` (B1-B7);
 11. the card's name and power limit as nvidia-smi gives them, then the
     last line ``{"ok": true, "device": {...}}``.
@@ -1050,34 +1053,64 @@ def wkv_inputs(torch, np, dev, b, s, h, d, seed):
         f(b, h, d, d) * 0.5
 
 
+def unaligned_copy(torch, t):
+    """A contiguous copy of ``t`` at a storage offset of one float, so its
+    data pointer is not 16-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def check_wkv_kernel(torch, np, dev):
-    """Phase 3c: B7 against its plain twin at the serving tick's shape and
-    at S in {1, 15, 17, 100} x D in {16, 64}, with a random initial state;
-    a row whose lw and k are all zero keeps its state bit for bit.
-    Returns the largest abs error at the serving shape and its inputs."""
+    """Phase 3c: B7 against its plain twin at the serving tick's shape, at
+    S in {1, 15, 17, 100} x D in {16, 64}, at S = 0 and S = 64, at D = 33
+    (a partial warp slice), with a random initial state, and on inputs
+    that are views at an offset that is not 16-byte aligned (which must
+    also give the aligned inputs' bits); a row whose lw and k are all zero
+    keeps its state bit for bit.  Returns the largest abs error at the
+    serving shape and its inputs."""
     from repro_torch.kernels.rwkv_wkv import kernel, ref
 
-    cases = [("serving tick", WKV_SERVE_SHAPE)] + [
-        (f"S={s} D={d}", (2, s, 3, d)) for s in (1, 15, 17, 100)
-        for d in (16, 64)]
-    for i, (name, shape) in enumerate(cases):
+    cases = [("serving tick", WKV_SERVE_SHAPE, False)] + [
+        (f"S={s} D={d}", (2, s, 3, d), False) for s in (1, 15, 17, 100)
+        for d in (16, 64)] + [
+        (f"S={s} D={d}", (2, s, 3, d), False)
+        for s, d in ((0, 64), (64, 64), (17, 33), (64, 33), (100, 33))] + [
+        ("unaligned", (2, 37, 3, 64), True),
+        ("unaligned", (2, 20, 3, 33), True)]
+    for i, (name, shape, moved) in enumerate(cases):
         r, k, v, lw, u, s0 = wkv_inputs(torch, np, dev, *shape, SEED + 20 + i)
         lw[1], k[1] = 0.0, 0.0  # row 1 advances no token
-        y, sf = kernel.wkv_fused(r, k, v, lw, u, s0)
+        ins = (r, k, v, lw, u, s0)
+        if moved:
+            aligned = kernel.wkv_fused(*ins)
+            ins = tuple(unaligned_copy(torch, a) for a in ins)
+            check(all(a.data_ptr() % 16 for a in ins), f"{name}: the views "
+                  "are 16-byte aligned")
+        y, sf = kernel.wkv_fused(*ins)
         torch.cuda.synchronize()
-        y_p, s_p = ref.wkv_chunked_plain(r, k, v, lw, u, s0)
+        y_p, s_p = ref.wkv_chunked_plain(*ins)
         line = f"[3c] {name:12s} {shape}:"
         errs = {}
         for key, got, want in (("y", y, y_p), ("state", sf, s_p)):
-            err = float((got - want).abs().max())
-            scale = float(want.abs().max())
+            check(got.shape == want.shape, f"{name}: B7 {key} has shape "
+                  f"{tuple(got.shape)}, not {tuple(want.shape)}")
+            err = float((got - want).abs().max()) if want.numel() else 0.0
+            scale = float(want.abs().max()) if want.numel() else 0.0
             errs[key] = err
             line += f" {key} err {err:.3e} (of {scale:.3e})"
             check(err <= WKV_TOL * scale, f"{name}: B7 {key} differs by "
                   f"{err}, more than {WKV_TOL} of {scale}")
         check(torch.equal(sf[1], s0[1]), f"{name}: the masked row's state "
               "changed")
-        print(line + "; masked row's state bitwise kept")
+        line += "; masked row's state bitwise kept"
+        if moved:
+            check(torch.equal(y, aligned[0]) and torch.equal(sf, aligned[1]),
+                  f"{name}: the unaligned views' result differs from the "
+                  "aligned inputs'")
+            line += "; bitwise equal to the aligned inputs'"
+        print(line)
         if i == 0:
             serve_err = max(errs.values())
             serve_inputs = (r, k, v, lw, u, s0)
@@ -1403,6 +1436,11 @@ def time_lm(torch, np, dev, lm, wkv_in, flush):
     print(f"[9] wkv_fused at {tuple(r.shape)}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, no library call computes it; bound "
           f"{b_ms:.4f} ms by {b_by} ({nbytes} bytes, {flops} FLOP)")
+    geo = kernel.launch_geometry(b, h, d)
+    print(f"[9] wkv_fused launch geometry at {tuple(r.shape)}: "
+          f"{geo['blocks']} blocks x {geo['threads']} threads, "
+          f"{geo['smem_bytes']} bytes of shared memory a block, a ring of "
+          f"{geo['stages']} chunk tiles")
 
     # The engine per tick, warm: the same requests again, each step timed
     # on the host clock (a step ends in the copy of its tokens to the

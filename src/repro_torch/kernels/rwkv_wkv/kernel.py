@@ -7,6 +7,8 @@ non-contiguous input, a head dim or a chunk the kernel does not take, a
 build failure or a launch error); for tensors on the CPU it runs
 `ref.wkv_chunked_plain`, the kernel's plain twin.  There is no fallback
 from the one to the other.  ``wkv_fused.launches`` counts kernel launches.
+The launch geometry follows from (B, H, D) by one rule in the source
+(`launch_geometry` reports it).
 """
 from __future__ import annotations
 
@@ -28,6 +30,9 @@ def _library():
     lib.wkv_chunked_forward.restype = ctypes.c_int
     lib.wkv_chunked_forward.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.wkv_launch_geometry.restype = None
+    lib.wkv_launch_geometry.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)]
     lib.wkv_max_head_dim.restype = ctypes.c_int
     lib.wkv_max_head_dim.argtypes = []
     lib.wkv_chunk.restype = ctypes.c_int
@@ -38,6 +43,15 @@ def _library():
 def build_wkv() -> None:
     """Compile (or load the cached build of) the CUDA kernel now."""
     _library()
+
+
+def launch_geometry(b: int, h: int, d: int) -> dict:
+    """The launch `wkv_fused` makes at (B, ·, H, D), by the one rule in
+    ``csrc/wkv.cu``: blocks, threads a block, dynamic shared memory
+    (bytes) and the depth of the chunk ring."""
+    out = (ctypes.c_int * 4)()
+    _library().wkv_launch_geometry(b, h, d, out)
+    return dict(zip(("blocks", "threads", "smem_bytes", "stages"), out))
 
 
 def _check_launch(r, k, v, lw, u, state, chunk: int):

@@ -18,7 +18,8 @@ B1's tolerances, and its gradients (B3, B4 through `ops.p2m_matmul`) to
 autograd of the plain twin in float64 within 1e-4 of the largest value.  The chunked WKV (B7) is held to
 its plain twin within 1e-4 of the largest |plain| (fp32 sums over up to
 64 terms and exps in another order, as the reference holds its own
-kernel), and keeps a masked row's state bit for bit.
+kernel), and keeps a masked row's state bit for bit; two launches, and
+inputs at an unaligned offset, give the same bits.
 """
 import numpy as np
 import pytest
@@ -421,6 +422,13 @@ WKV_SHAPES = [  # (B, S, H, D)
     (2, 1, 3, 64), (2, 15, 3, 16), (2, 17, 3, 64), (1, 100, 2, 16),
     (3, 45, 2, 32), (2, 16, 1, 7), (1, 0, 2, 16),
 ]
+# D across the kernel's 16-column warp slices, S across chunk edges.
+WKV_SHAPES += [(2, s, 3, d) for d in (1, 16, 33, 64)
+               for s in (0, 1, 15, 16, 17, 64, 100)
+               if (2, s, 3, d) not in WKV_SHAPES]
+# B*H from 1 to the serving tick's 320, and the edges of each warp slice.
+WKV_SHAPES += [(1, 40, 1, 64), (5, 64, 64, 64), (4, 33, 80, 17)]
+WKV_SHAPES += [(2, 23, 2, d) for d in (15, 17, 31, 32, 47, 48, 49, 63)]
 
 
 def _wkv_case(b, s, h, d, device, seed=0, zero_state=False):
@@ -456,7 +464,9 @@ def test_wkv_kernel_matches_plain(cuda, b, s, h, d, zero_state):
     _assert_wkv_close(sf, s_p)
 
 
-@pytest.mark.parametrize("b,s,h,d", [(4, 37, 3, 64), (2, 64, 2, 16)])
+@pytest.mark.parametrize("b,s,h,d", [
+    (4, 37, 3, 64), (2, 64, 2, 16), (8, 64, 40, 64), (2, 100, 3, 33),
+    (2, 17, 1, 1), (3, 64, 2, 48), (2, 1, 2, 16)])
 def test_wkv_kernel_keeps_masked_rows_bit_for_bit(cuda, b, s, h, d):
     """A row whose lw and k are 0 everywhere keeps its state bit for bit;
     one masked past its 5th token equals the same row cut at 5 tokens."""
@@ -469,6 +479,65 @@ def test_wkv_kernel_keeps_masked_rows_bit_for_bit(cuda, b, s, h, d):
     cut = [a[:, :5].contiguous() for a in (r, k, v, lw)]
     _, s5 = wkv_kernel.wkv_fused(*cut, u, s0)
     _assert_wkv_close(sf[0], s5[0])
+
+
+def test_wkv_kernel_keeps_a_masked_rows_subnormal_state(cuda):
+    """The masked row's state is fmaf(1, S, 0) outside the tensor cores,
+    so subnormal entries come back too."""
+    r, k, v, lw, u, s0 = _wkv_case(2, 40, 3, 64, cuda, seed=2)
+    lw[1], k[1] = 0.0, 0.0
+    s0[1] *= 1e-39
+    assert bool((s0[1] != 0).any()) and float(s0[1].abs().max()) < 1.2e-38
+    _, sf = wkv_kernel.wkv_fused(r, k, v, lw, u, s0)
+    torch.cuda.synchronize()
+    assert torch.equal(sf[1], s0[1])
+
+
+@pytest.mark.parametrize("b,s,h,d", [(8, 64, 40, 64), (2, 100, 3, 33)])
+def test_wkv_kernel_two_launches_agree_bit_for_bit(cuda, b, s, h, d):
+    ins = _wkv_case(b, s, h, d, cuda, seed=3)
+    y1, s1 = wkv_kernel.wkv_fused(*ins)
+    y2, s2 = wkv_kernel.wkv_fused(*ins)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` at a storage offset of one float."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.parametrize("b,s,h,d", [(8, 64, 40, 64), (2, 37, 3, 64),
+                                     (2, 20, 2, 16), (1, 17, 2, 33)])
+def test_wkv_kernel_unaligned_views_give_the_aligned_bits(cuda, b, s, h, d):
+    """Views at a storage offset that is not 16-byte aligned take the
+    kernel's 4-byte copies; the arithmetic, and so every bit, is that of
+    the aligned inputs."""
+    ins = _wkv_case(b, s, h, d, cuda, seed=4)
+    y, sf = wkv_kernel.wkv_fused(*ins)
+    for which in (range(6), [0], [3]):  # all inputs, r alone, lw alone
+        moved = [_unaligned(a) if i in which else a
+                 for i, a in enumerate(ins)]
+        y_u, s_u = wkv_kernel.wkv_fused(*moved)
+        torch.cuda.synchronize()
+        assert torch.equal(y_u, y) and torch.equal(s_u, sf), which
+
+
+def test_wkv_launch_geometry_follows_one_rule(cuda):
+    """One block a (b, h), one warp a 16 value columns, a fixed ring."""
+    serve = wkv_kernel.launch_geometry(8, 40, 64)
+    assert (serve["blocks"], serve["threads"]) == (320, 128)
+    for b, h, d in ((1, 1, 1), (2, 3, 16), (2, 3, 17), (4, 80, 33),
+                    (1, 2, 48), (1, 2, 49)):
+        geo = wkv_kernel.launch_geometry(b, h, d)
+        assert geo["blocks"] == b * h
+        assert geo["threads"] == 32 * -(-d // 16)
+        assert (geo["stages"], geo["smem_bytes"]) == (
+            serve["stages"], serve["smem_bytes"])
 
 
 def test_wkv_wrapper_rejects_what_the_kernel_does_not_take(cuda):

@@ -73,7 +73,7 @@ def _close(got, want, tol):
     ((2, 45, 3, 16), 16), ((1, 16, 1, 8), 16), ((3, 7, 2, 32), 16),
     ((2, 17, 2, 16), 16), ((1, 1, 2, 64), 16), ((2, 33, 2, 16), 4),
     ((1, 15, 3, 64), 16), ((2, 100, 1, 16), 16),
-])
+] + [((2, s, 3, d), 16) for d in (1, 33) for s in (16, 64, 100)])
 def test_wkv_plain_matches_reference_twin_and_pallas(shape, chunk):
     ins = _wkv_inputs(*shape)
     y, sf = ref.wkv_chunked_plain(*_t(*ins), chunk)
@@ -106,6 +106,18 @@ def test_wkv_naive_matches_reference(shape):
     y_ref, s_ref = jrwkv6.wkv_naive(*map(jnp.asarray, ins))
     _close(y, y_ref, WKV_TOL)
     _close(sf, s_ref, WKV_TOL)
+
+
+@pytest.mark.parametrize("d", [1, 33, 64])
+def test_wkv_plain_passes_the_state_through_at_zero_length(d):
+    """S = 0: no token, an empty y and the state unchanged, as the
+    reference's chunked twin (the Pallas kernel takes no empty grid)."""
+    ins = _wkv_inputs(2, 0, 3, d, seed=7)
+    y, sf = ref.wkv_chunked_plain(*_t(*ins))
+    y_ref, s_ref = jref.wkv_chunked_ref(*map(jnp.asarray, ins), 16)
+    assert y.shape == y_ref.shape == (2, 0, 3, d)
+    assert torch.equal(sf, torch.from_numpy(ins[5]))
+    assert np.array_equal(np.asarray(s_ref), ins[5])
 
 
 def test_wkv_zero_length_rows_keep_state_bitwise():
