@@ -95,7 +95,10 @@ no result:
 9. times on the card (CUDA events, median of 25, L2 flushed between
    runs) of each kernel, its plain version and one library call beside
    the least time the card could take (B5 at skip shares 0, 1/2, 1; B2
-   at depths 2 and 3 x block_h in turns with B1; B6 with its tuned
+   at depths 2 and 3 x block_h in turns with B1 at the serving, stream
+   and training shapes, each with its launch: pixels a thread, threads,
+   blocks an SM, registers and local bytes, none spilled, one read of
+   the images by `amax` and the library conv; B6 with its tuned
    blocks);
    the vision engine's time per launch and its parts; the stream
    engines' time per tick and its parts; the train step's time and its
@@ -144,6 +147,35 @@ def smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     check(proc.returncode == 0, f"nvidia-smi failed: {proc.stderr}")
     return proc.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(report: str) -> list[str]:
+    """One line a kernel from nvcc's ``-Xptxas -v`` report: its name
+    (demangled where the toolkit's ``cu++filt`` is found), its registers,
+    shared memory and its stack frame and spills."""
+    import re
+    import shutil
+
+    filt = (shutil.which("cu++filt") or shutil.which("c++filt")
+            or next((str(p) for p in [Path("/usr/local/cuda/bin/cu++filt")]
+                     if p.exists()), None))
+    out, name, frame = [], "?", ""
+    for line in report.splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            name, frame = found.group(1), ""
+            if filt:
+                proc = subprocess.run([filt, name], capture_output=True,
+                                      text=True, timeout=60)
+                full = re.sub(r"\(anonymous namespace\)::|<unnamed>::|"
+                              r"\((?:int|bool)\)", "", proc.stdout.strip())
+                name = full.split("(")[0].removeprefix("void ") or name
+        elif "stack frame" in line:
+            frame = line.strip()
+        elif "registers" in line:
+            used = line.split(":", 1)[-1].strip()
+            out.append(f"{name}: {used}; {frame}")
+    return out
 
 
 def cuda_ms(torch, fn, flush) -> float:
@@ -937,17 +969,10 @@ def time_stream(torch, np, dev, stream, flush, adc):
         images, wrows, shift, cached, half, **qkw), flush)
     # Yardstick: cuDNN's conv over the power stack (the raw accumulation,
     # every slot) and the select.
-    c = cfg.in_channels
-    dx = wrows.shape[1] // (k * c)
-    xs = images.permute(0, 3, 1, 2)
-    stack = torch.cat([xs, xs * xs, xs * xs * xs][:dx], dim=1).contiguous()
-    wlib = (wrows.reshape(k, dx, k, c, -1).permute(4, 1, 3, 0, 2)
-            .reshape(-1, dx * c, k, k).contiguous())
+    library = conv2d_yardstick(torch, images, wrows, k, s)
     cached_nchw = cached.permute(0, 3, 1, 2)
     rows["0.5"]["library_ms"] = cuda_ms(torch, lambda: torch.where(
-        half[:, None, None, None],
-        torch.nn.functional.conv2d(stack, wlib, stride=s), cached_nchw),
-        flush)
+        half[:, None, None, None], library(), cached_nchw), flush)
     for share, row in rows.items():
         extra = (f", with a bool mask (+ its conversion) {bool_ms:.4f} ms, "
                  f"plain {row['plain_ms']:.4f} ms, library conv2d + where "
@@ -1965,44 +1990,134 @@ def check_faults(torch, np, dev):
           f"requires grad under grad mode, and launch under no_grad")
 
 
-def time_pipelined(torch, flush, serve_in, adc, tuned_best, b1_row):
-    """Phase 9, B2: at the serving shape (quant), B2 at depths 2 and 3
-    with block_h 1, 2, 4 and the tuned block_h, in turns with B1 (B1, B2s,
-    B1), beside B1's bound, plain and library rows.  Returns B2's row of
-    the kernels line (its ms at the fastest setting), without launches and
-    error."""
+def conv2d_yardstick(torch, images, wrows, k, s):
+    """One cuDNN conv over the power stack [x, x², x³] (NCHW) with the
+    premixed weights, which computes the fused conv's raw accumulation:
+    returns it as a call, its inputs built once."""
+    c = images.shape[3]
+    dx = wrows.shape[1] // (k * c)
+    xs = images.permute(0, 3, 1, 2)
+    stack = torch.cat([xs, xs * xs, xs * xs * xs][:dx], dim=1).contiguous()
+    wlib = (wrows.reshape(k, dx, k, c, -1).permute(4, 1, 3, 0, 2)
+            .reshape(-1, dx * c, k, k).contiguous())
+    return lambda: torch.nn.functional.conv2d(stack, wlib, stride=s)
+
+
+def conv_bound(images, wrows, shift, k) -> tuple[float, str]:
+    """The least time (ms) of one fused conv at stride = kernel = ``k``:
+    each image, weight and shift byte read once, each output written
+    once."""
+    b, h, w, _ = images.shape
+    n = wrows.shape[2]
+    m = b * ((h - k) // k + 1) * ((w - k) // k + 1)
+    nbytes = 4 * (images.numel() + wrows.numel() + shift.numel() + m * n)
+    return bound(nbytes, 2 * m * k * wrows.shape[1] * n)
+
+
+def time_b2_shape(torch, flush, inputs, qkw, block_hs):
+    """B2 at depths 2 and 3 x ``block_hs`` in turns with B1 (B1, the B2s,
+    B1) on one shape, each by `cuda_ms`; the launch counters restored.
+    Returns ({(block_h, depth): ms}, [B1 before, B1 after])."""
     from repro_torch.kernels.p2m_conv import conv
 
-    paper_imgs, wrows, shift = serve_in
-    counted = stem_launches(conv)
-    qkw = dict(kernel=5, stride=5, mode="quant", v_lsb=adc.v_lsb,
-               max_count=adc.max_count)
-    b1 = [cuda_ms(torch, lambda: conv.p2m_conv_fused(
-        paper_imgs, wrows, shift, **qkw), flush)]
-    bhs = sorted({1, 2, 4} | ({tuned_best[0]} if tuned_best[0] else set()))
+    x, wr, sh = inputs
+    counted = (conv.p2m_conv_fused.launches,
+               conv.p2m_conv_fused.launches_pipelined)
+    b1 = [cuda_ms(torch, lambda: conv.p2m_conv_fused(x, wr, sh, **qkw),
+                  flush)]
     times = {}
     for depth in (2, 3):
-        for bh in bhs:
+        for bh in block_hs:
             times[(bh, depth)] = cuda_ms(torch, lambda: conv.p2m_conv_fused(
-                paper_imgs, wrows, shift, block_h=bh, pipeline_depth=depth,
-                **qkw), flush)
-    b1.append(cuda_ms(torch, lambda: conv.p2m_conv_fused(
-        paper_imgs, wrows, shift, **qkw), flush))
+                x, wr, sh, block_h=bh, pipeline_depth=depth, **qkw), flush)
+    b1.append(cuda_ms(torch, lambda: conv.p2m_conv_fused(x, wr, sh, **qkw),
+                      flush))
     (conv.p2m_conv_fused.launches,
-     conv.p2m_conv_fused.launches_pipelined) = counted.values()
-    best = min(times, key=times.get)
-    print(f"[9] p2m_conv_fused pipelined (B2) at {tuple(paper_imgs.shape)} "
-          f"quant, (block_h, depth): " + ", ".join(
-              f"{key} {ms:.4f} ms" for key, ms in times.items())
-          + f"; B1 {b1[0]:.4f} and {b1[1]:.4f} ms (before and after); tuned "
-          f"winner {tuned_best}; bound {b1_row['bound_ms']:.4f} ms by "
-          f"{b1_row['bound_by']}")
-    return {"ms": times[best], "plain_ms": b1_row["plain_ms"],
-            "bound_ms": b1_row["bound_ms"], "bound_by": b1_row["bound_by"],
-            "library_ms": b1_row["library_ms"],
+     conv.p2m_conv_fused.launches_pipelined) = counted
+    return times, b1
+
+
+def b2_shapes(torch, np, dev, serve_in):
+    """Phase 9's B2 shapes: name -> (inputs, mode, tuner signature name):
+    the serving batch (quant), its first 4 images as the stream's (quant)
+    and 32 random images as the training batch (raw, the train stem's
+    mode), all with the serving stem's weights."""
+    from repro_torch.configs.p2m_vww import CONFIG, TRAIN_BATCH
+
+    paper_imgs, wrows, shift = serve_in
+    size = CONFIG.image_size
+    rng = np.random.default_rng(SEED + 35)
+    train_imgs = torch.from_numpy(rng.random((TRAIN_BATCH, size, size, 3),
+                                             np.float32)).to(dev)
+    return {
+        f"serving {len(paper_imgs)}x{size}²": (serve_in, "quant", "serving"),
+        f"stream 4x{size}²": ((paper_imgs[:4].contiguous(), wrows, shift),
+                              "quant", "stream"),
+        f"training {TRAIN_BATCH}x{size}²": ((train_imgs, wrows, shift), "raw",
+                                            "training"),
+    }
+
+
+def time_pipelined(torch, np, dev, flush, serve_in, adc, tuned, b1_row):
+    """Phase 9, B2: at the serving, stream and training shapes, B2 at
+    depths 2 and 3 with block_h 1, 2, 4 and the tuned block_h, in turns
+    with B1 (B1, B2s, B1), each with its launch (pixels a thread, threads
+    and blocks, registers and local bytes a thread, blocks an SM), and one
+    read of the images (`amax`, each byte read once, nothing written)
+    and the library yardstick (`conv2d_yardstick`) under the same timing;
+    the served kernel spills nothing.  Returns B2's row of the kernels line
+    (its ms at the serving shape's fastest setting, beside B1's bound,
+    plain and library rows), without launches and error."""
+    from repro_torch.kernels.p2m_conv import conv
+
+    by_shape = {}
+    for name, ((x, wr, sh), mode, sig) in b2_shapes(torch, np, dev,
+                                                    serve_in).items():
+        qkw = dict(kernel=5, stride=5, mode=mode, v_lsb=adc.v_lsb,
+                   max_count=adc.max_count)
+        best_bh = tuned[sig]["best"][0]
+        bhs = sorted({1, 2, 4} | ({best_bh} if best_bh else set()))
+        times, b1 = time_b2_shape(torch, flush, (x, wr, sh), qkw, bhs)
+        read_ms = cuda_ms(torch, x.amax, flush)
+        library_ms = cuda_ms(torch, conv2d_yardstick(torch, x, wr, 5, 5),
+                             flush)
+        dx = wr.shape[1] // (5 * x.shape[3])
+        geo = {key: conv.pipelined_launch(
+            tuple(x.shape), wr.shape[2], dx, kernel=5, stride=5,
+            block_h=key[0], pipeline_depth=key[1]) for key in times}
+        for key, g in geo.items():
+            check(g["local_bytes"] == 0, f"B2 at {name} {key} uses "
+                  f"{g['local_bytes']} bytes of local memory a thread")
+        b_ms, b_by = conv_bound(x, wr, sh, 5)
+        best = min(times, key=times.get)
+        print(f"[9] p2m_conv_fused pipelined (B2) at {name} {mode}; (block_h, "
+              f"depth): ms, pixels a thread, threads x blocks, blocks an SM, "
+              f"registers, local bytes:")
+        for key, ms in times.items():
+            g = geo[key]
+            print(f"    {key}: {ms:.4f} ms, {g['pixels_per_thread']} px, "
+                  f"{g['threads']} x {g['blocks_x']}x{g['blocks_y']}, "
+                  f"{g['blocks_per_sm']} an SM, {g['registers']} regs, "
+                  f"{g['local_bytes']} B")
+        print(f"    B1 {b1[0]:.4f} and {b1[1]:.4f} ms (before and after); "
+              f"fastest B2 {best} {times[best]:.4f} ms; tuned winner "
+              f"{tuned[sig]['best']}; bound {b_ms:.4f} ms by {b_by}; one "
+              f"read of the images (amax) {read_ms:.4f} ms; library conv2d "
+              f"{library_ms:.4f} ms")
+        by_shape[name] = {
+            "mode": mode, "bound_ms": b_ms, "b1_ms_in_turns": b1,
+            "read_ms": read_ms, "library_ms": library_ms,
             "ms_by_block_h_depth": {f"{k[0]},{k[1]}": v
                                     for k, v in times.items()},
-            "b1_ms_in_turns": b1}
+            "launch": {f"{k[0]},{k[1]}": v for k, v in geo.items()}}
+    serving = next(iter(by_shape.values()))
+    return {"ms": min(serving["ms_by_block_h_depth"].values()),
+            "plain_ms": b1_row["plain_ms"], "bound_ms": b1_row["bound_ms"],
+            "bound_by": b1_row["bound_by"],
+            "library_ms": b1_row["library_ms"],
+            "ms_by_block_h_depth": serving["ms_by_block_h_depth"],
+            "b1_ms_in_turns": serving["b1_ms_in_turns"],
+            "by_shape": by_shape}
 
 
 def time_matmul(torch, np, dev, flush, adc):
@@ -2111,9 +2226,8 @@ def main() -> int:
     for name in ("p2m_conv", "p2m_bwd", "p2m_matmul", "wkv"):
         seconds, report = _build.BUILD_INFO[name]
         print(f"[2] {name}.cu: nvcc {seconds:.2f} s")
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"    ptxas: {line.strip()}")
+        for line in ptxas_summary(report):
+            print(f"    ptxas: {line}")
 
     # ------------------------------------------------------- phase 3
     gen = torch.Generator().manual_seed(SEED)
@@ -2293,23 +2407,14 @@ def main() -> int:
     plain_ms = cuda_ms(torch, lambda: conv.p2m_conv_premixed_plain(
         paper_imgs, wrows, shift, **qkw), flush)
     conv.p2m_conv_fused.launches = counted  # timing launches are not the path's
-    # Yardstick: one cuDNN conv over the power stack [x, x², x³] (NCHW),
-    # which computes the raw accumulation.
-    c = cfg.in_channels
-    dx = wrows.shape[1] // (k * c)
-    xs = paper_imgs.permute(0, 3, 1, 2)
-    stack = torch.cat([xs, xs * xs, xs * xs * xs][:dx], dim=1).contiguous()
-    wlib = (wrows.reshape(k, dx, k, c, -1).permute(4, 1, 3, 0, 2)
-            .reshape(-1, dx * c, k, k).contiguous())
-    lib_raw = torch.nn.functional.conv2d(stack, wlib, stride=s)
+    library = conv2d_yardstick(torch, paper_imgs, wrows, k, s)
     _, ker_raw = conv.p2m_conv_fused(paper_imgs, wrows, shift, want_raw=True,
                                      **qkw)
     conv.p2m_conv_fused.launches = counted
-    lib_err = float((lib_raw.permute(0, 2, 3, 1) - ker_raw).abs().max())
+    lib_err = float((library().permute(0, 2, 3, 1) - ker_raw).abs().max())
     check(lib_err <= 1e-4, f"library yardstick computes another function "
           f"({lib_err})")
-    library_ms = cuda_ms(torch, lambda: torch.nn.functional.conv2d(
-        stack, wlib, stride=s), flush)
+    library_ms = cuda_ms(torch, library, flush)
     n = wrows.shape[2]
     ho = wo = cfg.out_spatial(size)
     m = B * ho * wo
@@ -2364,8 +2469,8 @@ def main() -> int:
 
     b1_row = {"plain_ms": plain_ms, "bound_ms": bound_ms,
               "bound_by": bound_by, "library_ms": library_ms}
-    pipe_row = time_pipelined(torch, flush, serve_in, adc,
-                              tuned["serving"]["best"], b1_row)
+    pipe_row = time_pipelined(torch, np, dev, flush, serve_in, adc, tuned,
+                              b1_row)
     mm_row = time_matmul(torch, np, dev, flush, adc)
     gated_row = time_stream(torch, np, dev, stream, flush, adc)
     bwd_rows = time_backward_kernels(torch, bwd, flush)

@@ -15,7 +15,8 @@ optional integer-exact quantization).  No patch tensor is formed.
 (``csrc/p2m_conv.cu``) that replace the TPU kernel `p2m_conv_pallas`:
 ``pipeline_depth=0`` runs B1 (its grid path), ``pipeline_depth ≥ 2`` runs
 B2, the same function through a ``cp.async`` ring over the kernel rows
-(its ``pipeline_depth ≥ 2`` path), bit for bit equal to B1.  The tuner
+with several pixels a thread (its ``pipeline_depth ≥ 2`` path), bit for
+bit equal to B1; `pipelined_launch` reports B2's launch geometry.  The tuner
 (`tune.py`) picks the depth and the blocks.  For a CUDA tensor the
 wrapper launches a kernel or raises; for a tensor on the CPU it runs
 `p2m_conv_premixed_plain`, the kernels' plain PyTorch twin.
@@ -37,8 +38,8 @@ _SMEM_BYTES = 48 * 1024
 _CHUNK = 8  # outputs a thread keeps in registers at a time (csrc kChunk)
 #: Shared memory a block may use on an H100 (227 KB), opted in above 48 KB.
 SMEM_MAX = 232_448
-#: B2: most pixels (threads) a block takes, and most outputs a thread
-#: keeps live across the kernel rows (csrc kPipeThreads, kMaxTileChunks).
+#: B2: most pixels a block takes, and most outputs a block computes
+#: (csrc kPipeThreads, kMaxTileChunks register chunks).
 PIPE_THREADS = 512
 PIPE_MAX_TILE = 32
 
@@ -208,6 +209,9 @@ def _library():
     lib.p2m_conv_gated_forward.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
         + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    lib.p2m_conv_pipelined_geometry.restype = ctypes.c_int
+    lib.p2m_conv_pipelined_geometry.argtypes = (
+        [ctypes.c_int] * 11 + [ctypes.POINTER(ctypes.c_int)])
     lib.p2m_conv_max_dx.restype = ctypes.c_int
     lib.p2m_conv_max_dx.argtypes = []
     return lib
@@ -267,6 +271,60 @@ def pipelined_smem_bytes(wo: int, c: int, k: int, s: int, dx: int,
                        + dx * k * c * ceil_to(n_tile, _CHUNK))
 
 
+def _pipelined_blocks(b: int, ho: int, wo: int, n: int, c: int, k: int,
+                      s: int, dx: int, block_h: int | None,
+                      block_n: int | None,
+                      depth: int) -> tuple[int, int, int]:
+    """B2's ``(block_h, N tile, ring slots)`` for a call's arguments, or
+    `ValueError` where the kernel does not take them."""
+    bh = min(block_h or default_block_h(b * ho, wo), b * ho)
+    if bh * wo > PIPE_THREADS:
+        raise ValueError(f"block_h={bh} x Wo={wo} pixels exceed B2's "
+                         f"{PIPE_THREADS} threads a block")
+    n_tile = pipelined_tile(n, block_n)
+    nbuf = min(depth, k)
+    smem = pipelined_smem_bytes(wo, c, k, s, dx, bh, n_tile, nbuf)
+    if smem > SMEM_MAX:
+        raise ValueError(f"B2 with block_h={bh}, depth {nbuf} needs "
+                         f"{smem} bytes of shared memory, more than a "
+                         f"block has ({SMEM_MAX})")
+    return bh, n_tile, nbuf
+
+
+#: What `pipelined_launch` reports, in the order of the C entry's array.
+_GEOMETRY_KEYS = ("blocks_x", "blocks_y", "threads", "smem_bytes",
+                  "pixels_per_thread", "registers", "local_bytes",
+                  "blocks_per_sm")
+
+
+def pipelined_launch(shape: tuple, n: int, dx: int, *, kernel: int,
+                     stride: int, block_h: int | None = None,
+                     block_n: int | None = None,
+                     pipeline_depth: int = 2) -> dict:
+    """The launch `p2m_conv_fused` makes for B2 on images of ``shape``
+    (B, H, W, C), ``n`` outputs and ``dx`` powers, by the one rule in
+    ``csrc/p2m_conv.cu``: blocks in x (rows of B·Ho) and y (N tiles),
+    threads a block, dynamic shared memory, pixels a thread, and what the
+    card makes of the kernel: registers and local memory (spills) a
+    thread, blocks an SM (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`).
+    Launches nothing; needs the card."""
+    if pipeline_depth < 2:
+        raise ValueError(f"B2 runs at pipeline_depth >= 2, got "
+                         f"{pipeline_depth}")
+    b, h, w_dim, c = shape
+    k, s = kernel, stride
+    bh, n_tile, nbuf = _pipelined_blocks(
+        b, conv_out_spatial(h, k, s), conv_out_spatial(w_dim, k, s), n, c,
+        k, s, dx, block_h, block_n, pipeline_depth)
+    out = (ctypes.c_int * len(_GEOMETRY_KEYS))()
+    err = _library().p2m_conv_pipelined_geometry(
+        b, h, w_dim, c, k, s, n, dx, n_tile, bh, nbuf, out)
+    if err != 0:
+        raise RuntimeError(f"p2m_conv_pipelined_geometry: cudaError {err}")
+    return {"block_h": bh, "n_tile": n_tile, "ring_slots": nbuf,
+            **dict(zip(_GEOMETRY_KEYS, out))}
+
+
 def _check_launch(tensors: dict, *, kernel: int, stride: int, mode: str):
     """Validate what the CUDA kernels take: ``tensors`` (name → tensor,
     ``images`` and ``wrows`` among them) all float32, contiguous, on the
@@ -318,17 +376,8 @@ def _launch_cuda(images, wrows, shift, *, kernel, stride, mode, v_lsb,
     wo = conv_out_spatial(w_dim, k, s)
     pipelined = pipeline_depth >= 2
     if pipelined:
-        bh = min(block_h or default_block_h(b * ho, wo), b * ho)
-        if bh * wo > PIPE_THREADS:
-            raise ValueError(f"block_h={bh} x Wo={wo} pixels exceed B2's "
-                             f"{PIPE_THREADS} threads a block")
-        n_tile = pipelined_tile(n, block_n)
-        nbuf = min(pipeline_depth, k)
-        smem = pipelined_smem_bytes(wo, c, k, s, dx, bh, n_tile, nbuf)
-        if smem > SMEM_MAX:
-            raise ValueError(f"B2 with block_h={bh}, depth {nbuf} needs "
-                             f"{smem} bytes of shared memory, more than a "
-                             f"block has ({SMEM_MAX})")
+        bh, n_tile, nbuf = _pipelined_blocks(b, ho, wo, n, c, k, s, dx,
+                                             block_h, block_n, pipeline_depth)
     else:
         n_tile = _n_tile(n, k * dx * k * c, block_n)
     out = torch.empty((b, ho, wo, n), dtype=torch.float32,

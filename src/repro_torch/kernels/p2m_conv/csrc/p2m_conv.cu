@@ -45,26 +45,54 @@
 // kernel src/repro/kernels/p2m_conv/conv.py::p2m_conv_pallas with
 // pipeline_depth >= 2: _pipelined_body driving
 // _conv_kernel_fast_pipelined (s == k) and _conv_kernel_general_pipelined
-// (s < k).  Same function as B1, bit for bit, raw included.  A block covers
-// block_h rows of the flattened (B*Ho) output axis times all Wo pixels, one
-// thread a pixel, and one N tile of at most 32 outputs, all of them live in
-// the thread's registers across the kernel rows (B1 instead loops over N
-// chunks outside its kernel-row loop).  A ring of min(depth, k) shared-memory
-// slots holds, per kernel row ki, the block's image band (block_h rows of
-// ((Wo-1)*s + k)*C contiguous floats: the window of every pixel of the row,
-// at any stride) and that row's dx*kC x n_tile slab of W~.  The ring is
-// filled with cp.async (16-byte copies when the rows are 16-byte aligned,
-// 4-byte copies otherwise), one commit group per kernel row; slot ki % nbuf
-// is refilled with row ki + nbuf once every thread has drained it, as
-// _pipelined_body does.  Per pixel the arithmetic is B1's in B1's order
-// (e ascending, j inner, a per-row part, then acc += part with ki
-// ascending), so B2 equals B1 bit for bit; tiling does not enter a pixel's
-// arithmetic.  Bytes bound like B1: the ring makes each image byte one
-// coalesced copy into shared memory instead of B1's per-thread 60-byte
-// reads, and overlaps the next rows' copies with this row's FMAs.
+// (s < k).  Same function as B1, bit for bit, raw included.  Bytes bound it
+// as they bound B1: 33.3 MB a launch at the serving shape (30.1 MB of
+// images read, 3.2 MB of outputs written) against 361 MFLOP.
+//
+// Design.  A block covers block_h rows of the flattened (B*Ho) output axis
+// times all Wo pixels and one N tile of at most 32 outputs.  A ring of
+// min(depth, k) shared-memory slots holds, per kernel row ki, the block's
+// image band (block_h rows of ((Wo-1)*s + k)*C contiguous floats: the
+// window of every pixel of the row, at any stride) and that row's
+// dx*kC x n_tile slab of W~.  The ring is filled with cp.async, one commit
+// group per kernel row, 16-byte copies where the rows are 16-byte aligned
+// and 4-byte copies elsewhere; slot ki % nbuf is refilled with row
+// ki + nbuf once every thread has drained it, as _pipelined_body does.
+// So every image byte leaves device memory once, in coalesced copies that
+// overlap the arithmetic of the rows before.
+//
+// Several pixels a thread.  A thread computes P = kPipePixels = 2 of its
+// block's pixels (at an N tile of 8; one at wider tiles, so that at most
+// 32 sums stay live), all outputs of the tile for each, so each W~ value
+// it loads from shared memory feeds P pixels' FMAs.  A warp reads W~ with
+// broadcast loads, every lane the same address, but each lane still takes
+// its own copy; at one pixel a thread that is 4 bytes of W~ for every FMA.
+// The block's pixels are dealt to threads T apart, not P adjacent ones a
+// thread, so that a warp's x loads hit neighbouring windows.  P = 2 was
+// chosen by timing P = 1, 2 and 4 at the serving, stream and training
+// shapes (b2_probe.py --pixels; times in PERF.md).  A block is one thread
+// for each P of its pixels, in whole warps, and __launch_bounds__ is the
+// most that can be: 512 pixels over P.  The band rows' copies find their
+// source once a band row, not once a copy, and a pixel's outputs leave in
+// 16-byte stores where N % 4 == 0 (the stem's 8 outputs: one 32-byte
+// sector a pixel).
+//
+// W~ stays in the ring rather than being staged once for all k rows: that
+// would take 64.8 KB a block at k = 15, where the tuner must still find a
+// B2 block within a 16 KB budget.  Staging it once at the stem's k = 5
+// (7.2 KB at N = 8) has not been timed against the ring.
+//
+// Why not the tensor cores.  An mma sums a pixel's 1,800 products in
+// another order and rounds it differently.  B2 keeps B1's order per pixel
+// (e ascending, j inner, x^(j+1) by repeated multiplication, a per-row
+// part, then acc += part with ki ascending, the same epilogue), so it
+// equals B1 bit for bit, and B5, which is B1's body, stays equal to
+// B1 + where; how pixels are tiled over threads does not enter a pixel's
+// sum.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -248,8 +276,25 @@ int dispatch(const Args& a, int dx, void* stream) {
 
 // ---------------------------------------------------------------- B2
 
-constexpr int kPipeThreads = 512;  // most threads (pixels) a B2 block has
-constexpr int kMaxTileChunks = 4;  // a B2 thread keeps <= 32 outputs live
+constexpr int kPipeThreads = 512;  // most pixels a B2 block has
+constexpr int kMaxTileChunks = 4;  // a B2 block computes <= 32 outputs
+// Pixels a B2 thread computes at an N tile of one register chunk (the
+// stem's N = 8): every W~ value the thread loads feeds this many pixels.
+constexpr int kPipePixels = 2;
+
+// Pixels a B2 thread computes at an N tile of NCH register chunks:
+// kPipePixels at one chunk, fewer at more, so that a thread keeps at most
+// 32 sums live.
+template <int NCH>
+__host__ __device__ constexpr int pipe_pixels() {
+  return kPipePixels / NCH > 1 ? kPipePixels / NCH : 1;
+}
+
+// Most threads a B2 block launches: its most pixels over pixels a thread.
+template <int NCH>
+__host__ __device__ constexpr int pipe_max_threads() {
+  return kPipeThreads / pipe_pixels<NCH>();
+}
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -290,17 +335,27 @@ __device__ __forceinline__ void cp_async_wait_pending(int pending) {
   }
 }
 
+// One B2 block: block_h rows of the flattened (B*Ho) output axis times all
+// Wo pixels, and one N tile of NCH register chunks.  The block's pixels,
+// row-major, are i = t + p*T for thread t < T = ceil(block_h*Wo / P) and
+// p < P: at block_h 1 a thread's P pixels lie in one row, T apart.  The
+// lanes of a warp so read x from neighbouring windows, s*C floats apart
+// (15, odd, at the stem's shape: no bank conflict), where P adjacent
+// pixels a lane would put P*s*C floats between lanes (30: a 2-way
+// conflict).  A pixel past the block's (a thread past T, a row past B*Ho)
+// is computed on the slot's first window and not stored.
 template <int DX, int NCH>
-__global__ void __launch_bounds__(kPipeThreads)
+__global__ void __launch_bounds__(pipe_max_threads<NCH>())
 p2m_conv_pipelined_kernel(const float* __restrict__ images,
                           const float* __restrict__ wrows,
                           const float* __restrict__ shift,
                           float* __restrict__ out, float* __restrict__ raw_out,
                           int H, int W, int C, int k, int s, int Ho, int Wo,
                           int N, int block_h, int nbuf, long long rows_total,
-                          int vec16, int mode, float v_lsb, float max_count,
-                          float full_scale) {
+                          int vec16, int wvec16, int mode, float v_lsb,
+                          float max_count, float full_scale) {
   constexpr int kTile = NCH * kChunk;  // this block's N tile, padded
+  constexpr int P = pipe_pixels<NCH>();
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int kc = k * C;
@@ -324,31 +379,39 @@ p2m_conv_pipelined_kernel(const float* __restrict__ images,
         0.0f;
   }
 
-  // Start the copies of kernel row ki into ring slot `slot`.
+  // Start the copies of kernel row ki into ring slot `slot`: the block's
+  // image band, one band row at a time (its source found once, not per
+  // copy), and that row's DX*kc x n_end slab of W~.
   auto stage = [&](int slot, int ki) {
     float* xs = smem + slot * slot_floats;
     float* ws = xs + x_floats;
-    const int units = vec16 ? band / 4 : band;
-    for (int idx = threadIdx.x; idx < rows_here * units;
-         idx += blockDim.x) {
-      const int r = idx / units;
-      const int u = idx - r * units;
+    for (int r = 0; r < rows_here; ++r) {
       const long long row = row0 + r;
       const long long b = row / Ho;
       const int oh = (int)(row - b * Ho);
       const float* src =
           images + ((b * H + (long long)oh * s + ki) * W) * C;
+      float* dst = xs + r * band_ld;
       if (vec16) {
-        cp_async16(xs + r * band_ld + 4 * u, src + 4 * u);
+        for (int u = 4 * threadIdx.x; u < band; u += 4 * blockDim.x) {
+          cp_async16(dst + u, src + u);
+        }
       } else {
-        cp_async4(xs + r * band_ld + u, src + u);
+        for (int u = threadIdx.x; u < band; u += blockDim.x) {
+          cp_async4(dst + u, src + u);
+        }
       }
     }
     const float* wk = wrows + (long long)ki * DX * kc * N + n0;
-    for (int idx = threadIdx.x; idx < DX * kc * n_end; idx += blockDim.x) {
-      const int r = idx / n_end;
-      const int c = idx - r * n_end;
-      cp_async4(ws + r * kTile + c, wk + (long long)r * N + c);
+    const int wunits = wvec16 ? n_end / 4 : n_end;
+    for (int idx = threadIdx.x; idx < DX * kc * wunits; idx += blockDim.x) {
+      const int r = idx / wunits;
+      const int u = idx - r * wunits;
+      if (wvec16) {
+        cp_async16(ws + r * kTile + 4 * u, wk + (long long)r * N + 4 * u);
+      } else {
+        cp_async4(ws + r * kTile + u, wk + (long long)r * N + u);
+      }
     }
   };
 
@@ -357,47 +420,73 @@ p2m_conv_pipelined_kernel(const float* __restrict__ images,
     cp_async_commit();
   }
 
-  const int r = threadIdx.x / Wo;  // this thread's row of the block
-  const int ow = threadIdx.x - r * Wo;
-  const bool live = r < rows_here;
-  float acc[kTile];
+  const int T = (block_h * Wo + P - 1) / P;  // threads with pixels
+  int xoff[P];  // each pixel's window in a ring slot's bands
+  bool mine[P];  // whether the pixel is one of the block's
 #pragma unroll
-  for (int q = 0; q < kTile; ++q) acc[q] = 0.0f;
+  for (int p = 0; p < P; ++p) {
+    const int i = threadIdx.x + p * T;
+    const int r = i / Wo;
+    mine[p] = threadIdx.x < T && r < rows_here;
+    xoff[p] = mine[p] ? r * band_ld + (i - r * Wo) * s * C : 0;
+  }
+  const bool live = mine[0];  // a thread's later pixels come after it
+  float acc[P][kTile];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+#pragma unroll
+    for (int q = 0; q < kTile; ++q) acc[p][q] = 0.0f;
+  }
 
   for (int ki = 0; ki < k; ++ki) {
     const int slot = ki % nbuf;
     cp_async_wait_pending(min(k - ki - 1, nbuf - 1));  // row ki has landed
     __syncthreads();
     if (live) {
-      const float* xp = smem + slot * slot_floats + r * band_ld + ow * s * C;
-      const float* wk = smem + slot * slot_floats + x_floats;
+      const float* xr = smem + slot * slot_floats;
+      const float* wk = xr + x_floats;
 #pragma unroll
       for (int ch = 0; ch < NCH; ++ch) {
-        float part[kChunk];
+        float part[P][kChunk];
 #pragma unroll
-        for (int q = 0; q < kChunk; ++q) part[q] = 0.0f;
+        for (int p = 0; p < P; ++p) {
+#pragma unroll
+          for (int q = 0; q < kChunk; ++q) part[p][q] = 0.0f;
+        }
         for (int e = 0; e < kc; ++e) {
-          const float x = xp[e];
-          float xpow = x;
+          float x[P], xpow[P];
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            x[p] = xr[xoff[p] + e];
+            xpow[p] = x[p];
+          }
 #pragma unroll
           for (int j = 0; j < DX; ++j) {
             const float4* wv = reinterpret_cast<const float4*>(
                 wk + (j * kc + e) * kTile + ch * kChunk);
             const float4 w0 = wv[0];
             const float4 w1 = wv[1];
-            part[0] = fmaf(xpow, w0.x, part[0]);
-            part[1] = fmaf(xpow, w0.y, part[1]);
-            part[2] = fmaf(xpow, w0.z, part[2]);
-            part[3] = fmaf(xpow, w0.w, part[3]);
-            part[4] = fmaf(xpow, w1.x, part[4]);
-            part[5] = fmaf(xpow, w1.y, part[5]);
-            part[6] = fmaf(xpow, w1.z, part[6]);
-            part[7] = fmaf(xpow, w1.w, part[7]);
-            xpow *= x;
+#pragma unroll
+            for (int p = 0; p < P; ++p) {  // B1's FMAs, for P pixels
+              part[p][0] = fmaf(xpow[p], w0.x, part[p][0]);
+              part[p][1] = fmaf(xpow[p], w0.y, part[p][1]);
+              part[p][2] = fmaf(xpow[p], w0.z, part[p][2]);
+              part[p][3] = fmaf(xpow[p], w0.w, part[p][3]);
+              part[p][4] = fmaf(xpow[p], w1.x, part[p][4]);
+              part[p][5] = fmaf(xpow[p], w1.y, part[p][5]);
+              part[p][6] = fmaf(xpow[p], w1.z, part[p][6]);
+              part[p][7] = fmaf(xpow[p], w1.w, part[p][7]);
+              xpow[p] *= x[p];
+            }
           }
         }
 #pragma unroll
-        for (int q = 0; q < kChunk; ++q) acc[ch * kChunk + q] += part[q];
+        for (int p = 0; p < P; ++p) {
+#pragma unroll
+          for (int q = 0; q < kChunk; ++q) {
+            acc[p][ch * kChunk + q] += part[p][q];
+          }
+        }
       }
     }
     __syncthreads();  // every thread is done with the slot: refill it
@@ -407,14 +496,41 @@ p2m_conv_pipelined_kernel(const float* __restrict__ images,
     }
   }
 
-  if (!live) return;
-  const long long o = ((row0 + r) * Wo + ow) * N + n0;
+  // 16-byte stores where N and both outputs allow them (at the stem's
+  // N = 8 a pixel's outputs are one 32-byte sector), else 4-byte ones.
+  const bool vec_out = N % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(raw_out) % 16 == 0;
 #pragma unroll
-  for (int q = 0; q < kTile; ++q) {
-    if (q < n_end) {
-      if (raw_out != nullptr) raw_out[o + q] = acc[q];
-      out[o + q] = epilogue(acc[q], shift[n0 + q], mode, v_lsb, max_count,
-                            full_scale);
+  for (int p = 0; p < P; ++p) {
+    if (!mine[p]) continue;
+    const long long o = (row0 * Wo + threadIdx.x + p * T) * N + n0;
+    if (vec_out) {  // n_end is a multiple of 4 too
+#pragma unroll
+      for (int q = 0; q < kTile; q += 4) {
+        if (q >= n_end) continue;
+        if (raw_out != nullptr) {
+          *reinterpret_cast<float4*>(raw_out + o + q) = make_float4(
+              acc[p][q], acc[p][q + 1], acc[p][q + 2], acc[p][q + 3]);
+        }
+        float v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          v[i] = epilogue(acc[p][q + i], shift[n0 + q + i], mode, v_lsb,
+                          max_count, full_scale);
+        }
+        *reinterpret_cast<float4*>(out + o + q) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < kTile; ++q) {
+        if (q < n_end) {
+          if (raw_out != nullptr) raw_out[o + q] = acc[p][q];
+          out[o + q] = epilogue(acc[p][q], shift[n0 + q], mode, v_lsb,
+                                max_count, full_scale);
+        }
+      }
     }
   }
 }
@@ -428,44 +544,114 @@ size_t pipelined_smem(int Wo, int C, int k, int s, int dx, int block_h,
          ((size_t)block_h * band_ld + (size_t)dx * k * C * tile);
 }
 
+// B2's one launch rule: a block for each block_h rows of B*Ho and each N
+// tile, a thread for each P of its pixels, threads rounded up to whole
+// warps.
+struct PipeLaunch {
+  dim3 grid;
+  int threads;
+  size_t smem;
+};
+
 template <int DX, int NCH>
-cudaError_t launch_pipelined(const Args& a, int block_h, int nbuf,
-                             cudaStream_t stream) {
+PipeLaunch pipe_launch(const Args& a, int block_h, int nbuf) {
   const int Ho = (a.H - a.k) / a.s + 1;
   const int Wo = (a.W - a.k) / a.s + 1;
   const long long rows = (long long)a.B * Ho;
-  const int threads = (block_h * Wo + 31) / 32 * 32;
+  const int with_pixels =
+      (block_h * Wo + pipe_pixels<NCH>() - 1) / pipe_pixels<NCH>();
+  return {dim3((unsigned)((rows + block_h - 1) / block_h),
+               (unsigned)((a.N + NCH * kChunk - 1) / (NCH * kChunk)), 1u),
+          (with_pixels + 31) / 32 * 32,
+          pipelined_smem(Wo, a.C, a.k, a.s, DX, block_h, NCH * kChunk, nbuf)};
+}
+
+template <int DX, int NCH>
+cudaError_t allow_smem(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(p2m_conv_pipelined_kernel<DX, NCH>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+template <int DX, int NCH>
+cudaError_t launch_pipelined(const Args& a, int block_h, int nbuf,
+                             cudaStream_t stream) {
+  const PipeLaunch l = pipe_launch<DX, NCH>(a, block_h, nbuf);
+  const cudaError_t err = allow_smem<DX, NCH>(l.smem);
+  if (err != cudaSuccess) return err;
+  const int Ho = (a.H - a.k) / a.s + 1;
+  const int Wo = (a.W - a.k) / a.s + 1;
   const int band = ((Wo - 1) * a.s + a.k) * a.C;
   const int vec16 = (reinterpret_cast<uintptr_t>(a.images) % 16 == 0) &&
                     (a.W * a.C) % 4 == 0 && band % 4 == 0;
-  const size_t smem =
-      pipelined_smem(Wo, a.C, a.k, a.s, DX, block_h, NCH * kChunk, nbuf);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        p2m_conv_pipelined_kernel<DX, NCH>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((unsigned)((rows + block_h - 1) / block_h),
-                  (unsigned)((a.N + NCH * kChunk - 1) / (NCH * kChunk)), 1u);
-  p2m_conv_pipelined_kernel<DX, NCH><<<grid, threads, smem, stream>>>(
+  const int wvec16 =
+      (reinterpret_cast<uintptr_t>(a.wrows) % 16 == 0) && a.N % 4 == 0;
+  p2m_conv_pipelined_kernel<DX, NCH><<<l.grid, l.threads, l.smem, stream>>>(
       a.images, a.wrows, a.shift, a.out, a.raw, a.H, a.W, a.C, a.k, a.s, Ho,
-      Wo, a.N, block_h, nbuf, rows, vec16, a.mode, a.v_lsb,
-      (float)a.max_count, a.full_scale);
+      Wo, a.N, block_h, nbuf, (long long)a.B * Ho, vec16, wvec16, a.mode,
+      a.v_lsb, (float)a.max_count, a.full_scale);
   return cudaGetLastError();
 }
 
-template <int DX>
-cudaError_t dispatch_chunks(const Args& a, int block_h, int nbuf,
-                            cudaStream_t st) {
-  switch ((a.n_tile + kChunk - 1) / kChunk) {
-    case 1: return launch_pipelined<DX, 1>(a, block_h, nbuf, st);
-    case 2: return launch_pipelined<DX, 2>(a, block_h, nbuf, st);
-    case 3: return launch_pipelined<DX, 3>(a, block_h, nbuf, st);
-    case kMaxTileChunks:
-      return launch_pipelined<DX, kMaxTileChunks>(a, block_h, nbuf, st);
+// What launch_pipelined would launch, and what the card makes of it.
+template <int DX, int NCH>
+cudaError_t report_pipelined(const Args& a, int block_h, int nbuf,
+                             int* geometry) {
+  const PipeLaunch l = pipe_launch<DX, NCH>(a, block_h, nbuf);
+  cudaError_t err = allow_smem<DX, NCH>(l.smem);
+  cudaFuncAttributes attr{};
+  if (err == cudaSuccess) {
+    err = cudaFuncGetAttributes(&attr, p2m_conv_pipelined_kernel<DX, NCH>);
+  }
+  int blocks_per_sm = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks_per_sm, p2m_conv_pipelined_kernel<DX, NCH>, l.threads,
+        l.smem);
+  }
+  const int report[] = {(int)l.grid.x,          (int)l.grid.y,
+                        l.threads,              (int)l.smem,
+                        pipe_pixels<NCH>(),     attr.numRegs,
+                        (int)attr.localSizeBytes, blocks_per_sm};
+  for (int i = 0; i < 8; ++i) geometry[i] = report[i];
+  return err;
+}
+
+// Calls f(dx, chunks) with both as compile-time constants, for the
+// instantiation a launch of dx powers and an N tile of n_tile outputs
+// takes.
+template <class F>
+cudaError_t with_pipelined(int dx, int n_tile, F&& f) {
+  using std::integral_constant;
+  auto chunks = [&](auto d) -> cudaError_t {
+    switch ((n_tile + kChunk - 1) / kChunk) {
+      case 1: return f(d, integral_constant<int, 1>{});
+      case 2: return f(d, integral_constant<int, 2>{});
+      case 3: return f(d, integral_constant<int, 3>{});
+      case kMaxTileChunks:
+        return f(d, integral_constant<int, kMaxTileChunks>{});
+      default: return cudaErrorInvalidValue;
+    }
+  };
+  switch (dx) {
+    case 1: return chunks(integral_constant<int, 1>{});
+    case 2: return chunks(integral_constant<int, 2>{});
+    case 3: return chunks(integral_constant<int, 3>{});
+    case kMaxDx: return chunks(integral_constant<int, kMaxDx>{});
     default: return cudaErrorInvalidValue;
   }
+}
+
+// What B2 takes: block_h * Wo <= kPipeThreads pixels, n_tile <= 32,
+// 1 <= nbuf <= k.
+bool pipelined_takes(const Args& a, int block_h, int nbuf) {
+  const int Wo = (a.W - a.k) / a.s + 1;
+  return a.B >= 1 && a.C >= 1 && a.k >= 1 && a.s >= 1 && a.H >= a.k &&
+         a.W >= a.k && a.N >= 1 && a.n_tile >= 1 &&
+         a.n_tile <= kMaxTileChunks * kChunk && block_h >= 1 &&
+         (long long)block_h * Wo <= kPipeThreads && nbuf >= 1 &&
+         nbuf <= a.k && a.mode >= kRaw && a.mode <= kQuant;
 }
 
 }  // namespace
@@ -511,21 +697,31 @@ extern "C" int p2m_conv_pipelined_forward(
     float full_scale, void* stream) {
   const Args a{images, wrows, shift, nullptr, nullptr, out, raw, B, H, W, C,
                k, s, N, n_tile, mode, v_lsb, max_count, full_scale};
-  const int Wo = (W - k) / s + 1;
-  if (B < 1 || C < 1 || k < 1 || s < 1 || H < k || W < k || N < 1 ||
-      n_tile < 1 || n_tile > kMaxTileChunks * kChunk || block_h < 1 ||
-      (long long)block_h * Wo > kPipeThreads || nbuf < 1 || nbuf > k ||
-      mode < kRaw || mode > kQuant) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (!pipelined_takes(a, block_h, nbuf)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dx) {
-    case 1: return (int)dispatch_chunks<1>(a, block_h, nbuf, st);
-    case 2: return (int)dispatch_chunks<2>(a, block_h, nbuf, st);
-    case 3: return (int)dispatch_chunks<3>(a, block_h, nbuf, st);
-    case kMaxDx: return (int)dispatch_chunks<kMaxDx>(a, block_h, nbuf, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)with_pipelined(dx, n_tile, [&](auto d, auto nch) {
+    return launch_pipelined<decltype(d)::value, decltype(nch)::value>(
+        a, block_h, nbuf, st);
+  });
+}
+
+// The launch p2m_conv_pipelined_forward makes with these arguments, into
+// geometry[8]: blocks in x and y, threads a block, dynamic shared memory
+// (bytes), pixels a thread, registers a thread, local memory a thread
+// (bytes: spills and stack), and blocks an SM as
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them.  Launches
+// nothing.  Returns a cudaError_t.
+extern "C" int p2m_conv_pipelined_geometry(int B, int H, int W, int C, int k,
+                                           int s, int N, int dx, int n_tile,
+                                           int block_h, int nbuf,
+                                           int* geometry) {
+  const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+               B, H, W, C, k, s, N, n_tile, kRaw, 1.0f, 0, 0.0f};
+  if (!pipelined_takes(a, block_h, nbuf)) return (int)cudaErrorInvalidValue;
+  return (int)with_pipelined(dx, n_tile, [&](auto d, auto nch) {
+    return report_pipelined<decltype(d)::value, decltype(nch)::value>(
+        a, block_h, nbuf, geometry);
+  });
 }
 
 // Largest dx the kernel is compiled for; the wrapper checks against it.

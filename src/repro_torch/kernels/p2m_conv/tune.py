@@ -11,8 +11,9 @@ shape.  The port's meanings:
   it ignores ``block_h``, and ``block_n`` is the outputs a block stages
   W̃ for (`conv._n_tile`).  ``pipeline_depth`` ≥ 2: B2, a ring of
   ``min(depth, k)`` shared-memory slots over the kernel rows; ``block_h``
-  rows of B·Ho a block, one thread a pixel (``block_h · Wo`` ≤ 512), and
-  ``block_n`` ≤ 32 outputs a block, all live in a thread's registers.
+  rows of B·Ho a block (``block_h · Wo`` ≤ 512 pixels), several pixels of
+  a row a thread (`conv.pipelined_launch`), and ``block_n`` ≤ 32 outputs
+  a block, all live in a thread's registers.
   Candidates are the blocks the kernels run: a request B1 would ignore, or
   a depth that clamps to k, is not timed twice.
 * product: ``block_m`` rows of x a block (one thread a row), ``block_n``

@@ -583,15 +583,33 @@ def test_lm_engine_on_the_card_matches_the_cpu_port(cuda):
 
 # ------------------------------------------------------ pipelined conv (B2)
 
-PIPE_GEOMETRIES = [  # (B, H, W, C, k, s, N, dw, dx)
-    (8, 60, 60, 3, 5, 5, 8, 3, 3),  # s = k, 16-byte copies
-    (2, 14, 11, 2, 3, 2, 8, 3, 1),  # s < k, 4-byte copies
-    (2, 13, 13, 3, 5, 3, 5, 2, 2),
-    (3, 17, 12, 3, 4, 3, 24, 3, 3),  # three register chunks a thread
-    (2, 40, 40, 3, 5, 5, 40, 4, 4),  # two N tiles, the last one ragged
-    (1, 23, 19, 3, 5, 5, 11, 3, 4),
-    (3, 9, 9, 1, 4, 4, 16, 2, 3),  # Ho = Wo = 2
+PIPE_GEOMETRIES = [  # (B, H, W, C, k, s, N, dw, dx, images' offset)
+    (8, 60, 60, 3, 5, 5, 8, 3, 3, 0),  # s = k, 16-byte copies
+    (2, 14, 11, 2, 3, 2, 8, 3, 1, 0),  # s < k, 4-byte copies
+    (2, 13, 13, 3, 5, 3, 5, 2, 2, 0),
+    (3, 17, 12, 3, 4, 3, 24, 3, 3, 0),  # three register chunks a thread
+    (2, 40, 40, 3, 5, 5, 40, 4, 4, 0),  # two N tiles, the last one ragged
+    (1, 23, 19, 3, 5, 5, 11, 3, 4, 0),
+    (3, 9, 9, 1, 4, 4, 16, 2, 3, 0),  # Ho = Wo = 2
+    # At an N tile of 8 a thread computes 2 of its block's pixels (csrc
+    # kPipePixels): Wo = 1; Wo one below and one above a multiple of 2
+    # (the last thread of an odd block has one pixel); the serving width;
+    # and a last block shorter than block_h.
+    (3, 12, 5, 3, 5, 5, 8, 3, 3, 0),  # Wo = 1
+    (2, 20, 35, 3, 5, 5, 8, 3, 3, 0),  # Wo = 7
+    (2, 20, 45, 3, 5, 5, 8, 3, 3, 0),  # Wo = 9
+    (1, 40, 560, 3, 5, 5, 8, 3, 3, 0),  # Wo = 112 at B = 1
+    (3, 45, 50, 3, 5, 5, 8, 3, 3, 0),  # B·Ho = 27 at block_h 2 and 25
+    # images one float past a 16-byte address: 4-byte copies of the bands
+    (2, 60, 60, 3, 5, 5, 8, 3, 3, 1),
 ]
+
+
+def _pipe_id(geometry):
+    """A case's id: its numbers as pytest writes them, and "unaligned"
+    for images off a 16-byte address."""
+    return ("-".join(map(str, geometry[:9]))
+            + ("-unaligned" if geometry[9] else ""))
 
 
 def _pipe_case(b, h, w, c, k, n, dw, dx, device, seed=0):
@@ -606,11 +624,17 @@ def _pipe_case(b, h, w, c, k, n, dw, dx, device, seed=0):
             sh.to(device))
 
 
-@pytest.mark.parametrize("b,h,w,c,k,s,n,dw,dx", PIPE_GEOMETRIES)
+@pytest.mark.parametrize("b,h,w,c,k,s,n,dw,dx,offset", PIPE_GEOMETRIES,
+                         ids=[_pipe_id(g) for g in PIPE_GEOMETRIES])
 @pytest.mark.parametrize("mode", ["raw", "relu", "quant"])
 def test_pipelined_kernel_is_b1_bit_for_bit(cuda, b, h, w, c, k, s, n, dw,
-                                            dx, mode):
+                                            dx, offset, mode):
     x, wrows, shift = _pipe_case(b, h, w, c, k, n, dw, dx, cuda)
+    if offset:  # the same images at a 4-byte, not 16-byte, address
+        buf = torch.empty(x.numel() + offset, device=cuda)
+        buf[offset:].copy_(x.reshape(-1))
+        x = buf[offset:].view(x.shape)
+        assert x.data_ptr() % 16
     kw = dict(kernel=k, stride=s, mode=mode, want_raw=True)
     out1, raw1 = conv.p2m_conv_fused(x, wrows, shift, **kw)
     ho = (h - k) // s + 1
@@ -627,6 +651,25 @@ def test_pipelined_kernel_is_b1_bit_for_bit(cuda, b, h, w, c, k, s, n, dw,
                 case = (depth, block_h, block_n)
                 assert torch.equal(out2, out1), case
                 assert torch.equal(raw2, raw1), case
+
+
+def test_pipelined_launch_follows_one_rule(cuda):
+    # The serving shape: 8 x 560², N = 8, dx = 3, Wo = 112.  A thread
+    # computes 2 pixels, so a block of block_h rows takes 56 threads a
+    # row, in whole warps; the kernel spills nothing.
+    for bh, threads in ((1, 64), (2, 128), (4, 224)):
+        geo = conv.pipelined_launch((8, 560, 560, 3), 8, 3, kernel=5,
+                                    stride=5, block_h=bh, pipeline_depth=3)
+        assert geo["pixels_per_thread"] == 2 and geo["threads"] == threads
+        assert (geo["blocks_x"], geo["blocks_y"]) == (896 // bh, 1)
+        assert geo["smem_bytes"] == conv.pipelined_smem_bytes(
+            112, 3, 5, 5, 3, bh, 8, 3)
+        assert geo["local_bytes"] == 0 and geo["blocks_per_sm"] >= 1
+    # an N tile of 32 outputs: one pixel a thread, two tiles for N = 40
+    wide = conv.pipelined_launch((2, 40, 40, 3), 40, 4, kernel=5, stride=5,
+                                 block_n=32, pipeline_depth=2)
+    assert wide["pixels_per_thread"] == 1 and wide["blocks_y"] == 2
+    assert wide["local_bytes"] == 0
 
 
 def test_pipelined_wrapper_rejects_what_the_kernel_does_not_take(cuda):
