@@ -13,8 +13,10 @@ no result:
 3. hold the forward conv kernel (B1) against its plain PyTorch version on
    the card, TF32 off, at the serving shapes and at others (general
    stride, ragged N and rows), in every mode;
-3b. hold the gated stem kernel (B5, the same source as B1) against B1
-   followed by `torch.where`, bit for bit, and against its plain version,
+3b. hold the gated stem kernel (B5), both its bodies (B1's at depth 0,
+   the gated ring of B2 at depths 2 and 3, block_h 1, 2, 4), against B1
+   followed by `torch.where` and against the dense kernel at the same
+   blocks followed by it, bit for bit, and against its plain version,
    over masks (all re-run, all skip, mixed, one slot), at the stream
    shape, at s < k and at Ho = 1, in every mode;
 3c. hold the chunked WKV kernel (B7) against its plain version at the LM
@@ -58,8 +60,10 @@ no result:
    gated stem (the default on the card), on the where stem and dense
    (``threshold=None``); gated == where and gated == dense bit for bit,
    the measured skip rate and bandwidth reduction exact, B5 once a tick
-   and no B1 on the gated engine, B1 once a tick on the where engine; a
-   NaN cache forces its slot to re-run and drops its gate to dense;
+   on the body of the tuner's depth for the engines' stem signature (the
+   ring at depth >= 2) and no B1 or B2 on the gated engine, B1 or B2 once
+   a tick on the where engine; a NaN cache forces its slot to re-run and
+   drops its gate to dense;
 5c. the LM path: RWKV-6 3B (`configs/rwkv6_3b.py::CONFIG`, 32 layers,
    d_model 2560, float32) with random weights from a seed, served through
    `ServeEngine` (8 slots, max_len 512, chunked prefill 64): 16
@@ -94,7 +98,11 @@ no result:
    probabilities against the plain stem's where no count differs;
 9. times on the card (CUDA events, median of 25, L2 flushed between
    runs) of each kernel, its plain version and one library call beside
-   the least time the card could take (B5 at skip shares 0, 1/2, 1; B2
+   the least time the card could take (B5 at skip shares 0, 1/2, 1, its
+   ring at the engine's blocks and its B1 body in turns, beside the dense
+   B2 at those blocks over 4, 1 and 2 images, one `amax` read of the
+   images and one launch that writes 4 bytes, with the ring's launch,
+   which must spill nothing; B2
    at depths 2 and 3 x block_h in turns with B1 at the serving, stream
    and training shapes, each with its launch: pixels a thread, threads,
    blocks an SM, registers and local bytes, none spilled, one read of
@@ -704,12 +712,20 @@ STREAM_LENGTHS = (12, 8, 12, 6, 12, 10)
 NOISY_STREAM = 3  # the one stream with per-frame noise: it never skips
 
 
+#: B5's bodies and blocks phase 3b holds: (pipeline_depth, block_h).
+#: Depth 0 is B1's gated body; the rest the ring, block_h clamped to a
+#: divisor of Ho.
+GATED_BLOCKS = ((0, None), (2, 1), (2, 2), (3, 4))
+
+
 def check_gated_kernel(torch, np, dev, imgs, wrows, shift, rand_case, adc):
-    """Phase 3b: the gated stem (B5) against B1 + `torch.where`, bit for
-    bit, and against its plain twin (raw, relu within 1e-5; quant by the
-    count rule), over masks (all re-run, all skip, mixed, one slot),
-    geometries (the stream shape, s < k, Ho = 1) and modes.  Returns the
-    largest raw/relu difference from the plain twin at the stream shape."""
+    """Phase 3b: the gated stem (B5), both bodies (B1's and the ring, at
+    `GATED_BLOCKS`), against B1 + `torch.where` and against the dense
+    kernel at the same blocks + where, bit for bit, and against its plain
+    twin (raw, relu within 1e-5; quant by the count rule), over masks
+    (all re-run, all skip, mixed, one slot), geometries (the stream shape,
+    s < k, Ho = 1) and modes.  Returns the largest raw/relu difference
+    from the plain twin at the stream shape."""
     from repro_torch.kernels.p2m_conv import conv, gated
 
     masks = {"all rerun": [1, 1, 1, 1], "all skip": [0, 0, 0, 0],
@@ -727,35 +743,50 @@ def check_gated_kernel(torch, np, dev, imgs, wrows, shift, rand_case, adc):
         for mode in ("raw", "relu", "quant"):
             kw = dict(kernel=kk, stride=ss, mode=mode, v_lsb=adc.v_lsb,
                       max_count=adc.max_count)
-            dense = conv.p2m_conv_fused(x, wr, sh, **kw)
+            b1 = conv.p2m_conv_fused(x, wr, sh, **kw)
             _, raw = conv.p2m_conv_premixed_plain(
                 x, wr, torch.zeros_like(sh), want_raw=True,
                 **{**kw, "mode": "raw"})
-            line = f"[3b] {name:13s} {mode:5s} {tuple(dense.shape)}:"
-            for mname, mask in masks.items():
-                rerun = torch.tensor(mask, dtype=torch.bool, device=dev)
-                got = gated.p2m_conv_fused_gated(x, wr, sh, cached, rerun,
-                                                 **kw)
-                torch.cuda.synchronize()
-                want = torch.where(rerun[:, None, None, None], dense, cached)
-                check(torch.equal(got, want), f"{name} {mode} {mname}: B5 "
-                      "differs from B1 + where")
-                plain = gated.p2m_conv_gated_plain(x, wr, sh, cached, rerun,
-                                                   **kw)
-                if mode == "quant":
-                    rep = conv.quant_disagreement(got, plain, raw, adc.v_lsb)
-                    check(rep["max_count_diff"] <= 1 and rep["share"] <= 1e-4
-                          and rep["all_near_half"],
-                          f"{name} {mname}: quant counts disagree: {rep}")
-                    line += f" {mname} ={rep['n_diff']} counts"
-                else:
-                    err = float((got - plain).abs().max())
-                    check(err <= RAW_TOL, f"{name} {mode} {mname}: B5 vs "
-                          f"plain {err}")
-                    if name.startswith("stream"):
-                        stream_err = max(stream_err, err)
-                    line += f" {mname} {err:.1e}"
-            print(line + " (bitwise = B1 + where in every mask)")
+            line = f"[3b] {name:13s} {mode:5s} {tuple(b1.shape)}:"
+            errs = {}
+            for depth, bh in GATED_BLOCKS:
+                aligned = gated.aligned_block_h(
+                    ho, bh or conv.default_block_h(b * ho, wo))
+                dense = conv.p2m_conv_fused(x, wr, sh, block_h=aligned,
+                                            pipeline_depth=depth, **kw)
+                for mname, mask in masks.items():
+                    rerun = torch.tensor(mask, dtype=torch.bool, device=dev)
+                    got = gated.p2m_conv_fused_gated(
+                        x, wr, sh, cached, rerun, block_h=bh,
+                        pipeline_depth=depth, **kw)
+                    torch.cuda.synchronize()
+                    sel = rerun[:, None, None, None]
+                    case = f"{name} {mode} {mname} depth {depth} block_h {bh}"
+                    check(torch.equal(got, torch.where(sel, b1, cached)),
+                          f"{case}: B5 differs from B1 + where")
+                    check(torch.equal(got, torch.where(sel, dense, cached)),
+                          f"{case}: B5 differs from the dense kernel at its "
+                          "blocks + where")
+                    plain = gated.p2m_conv_gated_plain(x, wr, sh, cached,
+                                                       rerun, **kw)
+                    if mode == "quant":
+                        rep = conv.quant_disagreement(got, plain, raw,
+                                                      adc.v_lsb)
+                        check(rep["max_count_diff"] <= 1
+                              and rep["share"] <= 1e-4
+                              and rep["all_near_half"],
+                              f"{case}: quant counts disagree: {rep}")
+                        errs[mname] = f"={rep['n_diff']} counts"
+                    else:
+                        err = float((got - plain).abs().max())
+                        check(err <= RAW_TOL, f"{case}: B5 vs plain {err}")
+                        if name.startswith("stream"):
+                            stream_err = max(stream_err, err)
+                        errs[mname] = f"{err:.1e}"
+            line += "".join(f" {m} {e}" for m, e in errs.items())
+            print(line + " (bitwise = B1 + where and = the dense kernel at "
+                  "the same blocks + where, in every mask, at (depth, "
+                  f"block_h) {GATED_BLOCKS})")
     return stream_err
 
 
@@ -768,6 +799,7 @@ def stream_path(torch, np, dev, params, bn):
     (``threshold=None``).  Returns what the timings read."""
     from repro_torch.configs.p2m_vww import CONFIG, STREAM_MAX_SLOTS
     from repro_torch.core.bandwidth import frame_output_bits
+    from repro_torch.core.p2m_conv import deploy_conv_blocks
     from repro_torch.kernels.p2m_conv import conv, gated
     from repro_torch.models.mobilenetv2 import head_out_channels
     from repro_torch.serving import drive
@@ -798,14 +830,13 @@ def stream_path(torch, np, dev, params, bn):
                            gate=DeltaGateConfig(threshold=threshold),
                            device=dev, **kw)
         torch.cuda.synchronize()
-        gated.p2m_conv_fused_gated.launches = 0
+        reset_gated_launches(gated)
         reset_stem_launches(conv)
         t0 = time.perf_counter()
         drive(eng, requests(), on_undrained="raise")
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = {"p2m_conv_fused_gated": gated.p2m_conv_fused_gated.launches,
-                  **stem_launches(conv)}
+        counts = {**gated_launches(gated), **stem_launches(conv)}
         done = eng.completed
         check(sorted(r.uid for r in done) == list(range(len(frames)))
               and not eng.failed and not eng.evicted,
@@ -841,11 +872,20 @@ def stream_path(torch, np, dev, params, bn):
     check(g_eng.stem_path == "gated" and d_eng.stem_path == "gated",
           f"auto picked {g_eng.stem_path} on the card")
     ticks = g_eng.stats["launches"]
-    check(g_counts == {"p2m_conv_fused_gated": ticks, "p2m_conv_fused": 0,
-                       "p2m_conv_fused_pipelined": 0},
-          f"gated engine launches {g_counts} in {ticks} ticks")
+    # The tuner's blocks for the engines' stem signature (a cache hit: the
+    # engines asked it): B5 runs the body of its depth, once a tick.
+    blocks = deploy_conv_blocks(torch.empty(
+        STREAM_MAX_SLOTS, CONFIG.image_size, CONFIG.image_size, 3,
+        device=dev), CONFIG.p2m)
+    body = ("p2m_conv_fused_gated_pipelined" if blocks[2] >= 2
+            else "p2m_conv_fused_gated")
+    want = {name: 0 for name in g_counts}
+    check(g_counts == {**want, body: ticks},
+          f"gated engine launches {g_counts} in {ticks} ticks, tuner's "
+          f"blocks {blocks}")
     # the where engine's stem is B1 or B2, as the tuner picked
     check(w_counts["p2m_conv_fused_gated"] == 0
+          and w_counts["p2m_conv_fused_gated_pipelined"] == 0
           and w_counts["p2m_conv_fused"]
           + w_counts["p2m_conv_fused_pipelined"] == w_eng.stats["launches"],
           f"where engine launches {w_counts}")
@@ -877,9 +917,10 @@ def stream_path(torch, np, dev, params, bn):
           f"{skips / frames_n:.4f} (each noiseless stream 0.5, the noisy "
           f"one 0); measured reduction vs dense "
           f"{summary['measured_reduction_vs_dense']:.6f}; B5 launched "
-          f"{g_counts['p2m_conv_fused_gated']} times in {ticks} ticks, B1 "
-          f"and B2 0 times; the where engine launched B1 "
-          f"{w_counts['p2m_conv_fused']} and B2 "
+          f"{g_counts[body]} times in {ticks} ticks on "
+          f"{'the ring' if blocks[2] >= 2 else 'the B1 body'} at the "
+          f"tuner's blocks {tuple(blocks)}, B1 and B2 0 times; the where "
+          f"engine launched B1 {w_counts['p2m_conv_fused']} and B2 "
           f"{w_counts['p2m_conv_fused_pipelined']} times; frames made in "
           f"{setup_s:.2f} s")
 
@@ -906,14 +947,17 @@ def stream_path(torch, np, dev, params, bn):
     return {"gated": g_eng, "where": w_eng, "frames": frames,
             "requests": requests, "launches": g_counts,
             "where_launches": w_counts, "ticks": ticks,
-            "slots": STREAM_MAX_SLOTS}
+            "slots": STREAM_MAX_SLOTS, "blocks": tuple(blocks)}
 
 
 def time_stream(torch, np, dev, stream, flush, adc):
-    """Phase 9, stream part: B5 alone at skip shares 0, 1/2 and 1 beside
-    its bound, its plain twin and a library yardstick; the engines' time
-    per tick, warm; and the parts of a tick.  Returns B5's row of the
-    kernels line, without launches and error."""
+    """Phase 9, stream part: B5 alone at skip shares 0, 1/2 and 1, its
+    ring at the engine's blocks (the tuner's) and its B1 body (depth 0) in
+    turns (ring, B1 body, B1 body, ring), beside its bound, the dense B2 at
+    the same blocks, one `amax` read of the images, its plain twin and the
+    library conv2d + where; the ring's launch; the engines' time per tick,
+    warm; and the parts of a tick.  Returns B5's row of the kernels line,
+    without launches and error."""
     from repro_torch.configs.p2m_vww import CONFIG
     from repro_torch.kernels.p2m_conv import conv, gated
     from repro_torch.models.mobilenetv2 import apply_mnv2_backbone
@@ -933,6 +977,7 @@ def time_stream(torch, np, dev, stream, flush, adc):
     dep = eng._deploy
     wrows, shift = dep["wrows"], dep["shift"]
     n = wrows.shape[2]
+    dx = wrows.shape[1] // (k * 3)
     ho = cfg.out_spatial(size)
     frames = stream["frames"]
     images = torch.from_numpy(np.stack([f[0] for f in frames[:b]])).to(dev)
@@ -940,9 +985,23 @@ def time_stream(torch, np, dev, stream, flush, adc):
                         .manual_seed(SEED + 4)).to(dev)
     qkw = dict(kernel=k, stride=s, mode="quant", v_lsb=adc.v_lsb,
                max_count=adc.max_count)
-    counted = (gated.p2m_conv_fused_gated.launches,
-               conv.p2m_conv_fused.launches,
-               conv.p2m_conv_fused.launches_pipelined)
+    counted = (gated_launches(gated), stem_launches(conv))
+    # The engine's blocks; the ring at (2, None, 2) where the tuner picked
+    # B1 (then the engine ran the B1 body).
+    bh, bn, depth = stream["blocks"]
+    engine_kw = dict(block_h=bh, block_n=bn, pipeline_depth=depth)
+    ring_kw = engine_kw if depth >= 2 else dict(block_h=2, block_n=None,
+                                                pipeline_depth=2)
+    bodies = {"ring": ring_kw, "B1 body": dict(pipeline_depth=0)}
+    launch = gated.gated_launch(tuple(images.shape), n, dx, kernel=k,
+                                stride=s, **ring_kw)
+    check(launch["local_bytes"] == 0, f"B5's ring at {ring_kw} uses "
+          f"{launch['local_bytes']} bytes of local memory a thread")
+
+    def dense_b2():
+        return conv.p2m_conv_fused(images, wrows, shift, **qkw, **ring_kw)
+
+    dense_ms = [cuda_ms(torch, dense_b2, flush)]
     img_bytes = 4 * size * size * 3
     out_bytes = 4 * ho * ho * n
     rows = {}
@@ -956,31 +1015,61 @@ def time_stream(torch, np, dev, stream, flush, adc):
                   + b * out_bytes + 4 * (wrows.numel() + shift.numel() + b))
         flops = 2 * n_run * ho * ho * k * wrows.shape[1] * n
         b_ms, b_by = bound(nbytes, flops)
-        rows[share] = {
-            "ms": cuda_ms(torch, lambda: gated.p2m_conv_fused_gated(
-                images, wrows, shift, cached, rerun, **qkw), flush),
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-            "flops": flops}
+        turns = {name: [] for name in bodies}
+        for name in ("ring", "B1 body", "B1 body", "ring"):
+            turns[name].append(cuda_ms(
+                torch, lambda: gated.p2m_conv_fused_gated(
+                    images, wrows, shift, cached, rerun, **qkw,
+                    **bodies[name]), flush))
+        rows[share] = {"turns": turns, "ms": statistics.mean(turns["ring"]),
+                       "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                       "flops": flops}
         if share == "0.5":
             half = rerun.to(torch.bool)
+    dense_ms.append(cuda_ms(torch, dense_b2, flush))
+    read_ms = cuda_ms(torch, images.amax, flush)
+    # Whether B5's time here follows its work or one block's chain of k
+    # rows: the dense B2 at the same blocks over the first 1 and 2 images
+    # (a quarter and a half of the blocks, each the same chain).
+    fewer = {nb: images[:nb] for nb in (1, 2)}
+    fewer_ms = {nb: cuda_ms(torch, lambda: conv.p2m_conv_fused(
+        x, wrows, shift, **qkw, **ring_kw), flush)
+        for nb, x in fewer.items()}
+    # The floor of this timing: one launch that writes 4 bytes.
+    launch_ms = cuda_ms(torch, torch.zeros(1, device=dev).zero_, flush)
     rows["0.5"]["plain_ms"] = cuda_ms(torch, lambda: gated.p2m_conv_gated_plain(
         images, wrows, shift, cached, half, **qkw), flush)
     bool_ms = cuda_ms(torch, lambda: gated.p2m_conv_fused_gated(
-        images, wrows, shift, cached, half, **qkw), flush)
+        images, wrows, shift, cached, half, **qkw, **engine_kw), flush)
     # Yardstick: cuDNN's conv over the power stack (the raw accumulation,
     # every slot) and the select.
     library = conv2d_yardstick(torch, images, wrows, k, s)
     cached_nchw = cached.permute(0, 3, 1, 2)
     rows["0.5"]["library_ms"] = cuda_ms(torch, lambda: torch.where(
         half[:, None, None, None], library(), cached_nchw), flush)
+    print(f"[9] p2m_conv_fused_gated (B5) at ({b},{size},{size},3) quant; "
+          f"the engine ran {'the ring' if depth >= 2 else 'the B1 body'} "
+          f"at the tuner's blocks {stream['blocks']}; ring {ring_kw}: block_h "
+          f"{launch['block_h']}, {launch['ring_slots']} slots, "
+          f"{launch['pixels_per_thread']} px, {launch['threads']} x "
+          f"{launch['blocks_x']}x{launch['blocks_y']}, {launch['smem_bytes']}"
+          f" B shared, {launch['blocks_per_sm']} an SM, "
+          f"{launch['registers']} regs, {launch['local_bytes']} B local")
     for share, row in rows.items():
-        extra = (f", with a bool mask (+ its conversion) {bool_ms:.4f} ms, "
+        extra = (f"; with a bool mask (+ its conversion) {bool_ms:.4f} ms, "
                  f"plain {row['plain_ms']:.4f} ms, library conv2d + where "
                  f"{row['library_ms']:.4f} ms" if share == "0.5" else "")
-        print(f"[9] p2m_conv_fused_gated at ({b},{size},{size},3) skip share "
-              f"{share}: kernel {row['ms']:.4f} ms{extra}; bound "
-              f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
-              f"({row['bytes']} bytes, {row['flops']} FLOP)")
+        print(f"[9] B5 skip share {share}: ring "
+              + " and ".join(f"{v:.4f}" for v in row["turns"]["ring"])
+              + " ms, B1 body "
+              + " and ".join(f"{v:.4f}" for v in row["turns"]["B1 body"])
+              + f" ms (in turns){extra}; bound {row['bound_ms']:.4f} ms by "
+              f"{row['bound_by']} ({row['bytes']} bytes, {row['flops']} FLOP)")
+    print(f"[9] beside B5: dense B2 at {ring_kw} {dense_ms[0]:.4f} and "
+          f"{dense_ms[1]:.4f} ms (before and after), over the first 1 and 2 "
+          f"images {fewer_ms[1]:.4f} and {fewer_ms[2]:.4f} ms; one read of "
+          f"the images (amax) {read_ms:.4f} ms; one launch that writes 4 "
+          f"bytes {launch_ms:.4f} ms")
 
     # The engines per tick, warm: the same six streams again, in turns
     # (gated, where, where, gated).
@@ -1017,10 +1106,11 @@ def time_stream(torch, np, dev, stream, flush, adc):
         grid = det_grid(ho)
         parts["stem, gated (B5 + the bool mask's conversion, skip share "
               "1/2)"] = bool_ms
-        parts["stem, where (B1 + torch.where)"] = cuda_ms(
+        parts["stem, where (the tuner's B1 or B2 + torch.where)"] = cuda_ms(
             torch, lambda: torch.where(
                 rerun[:, None, None, None],
-                conv.p2m_conv_fused(images, wrows, shift, **qkw), cached),
+                conv.p2m_conv_fused(images, wrows, shift, **qkw,
+                                    **engine_kw), cached),
             flush)
         parts["backbone"] = cuda_ms(torch, lambda: apply_mnv2_backbone(
             eng._params, eng._bn, stem, CONFIG), flush)
@@ -1036,17 +1126,25 @@ def time_stream(torch, np, dev, stream, flush, adc):
         parts["forward, gated, with the results to the host (host clock)"] = \
             wall_ms(torch, lambda: [t.cpu() for t in fwd(images, cached,
                                                           rerun)[1:]], flush)
-    (gated.p2m_conv_fused_gated.launches, conv.p2m_conv_fused.launches,
-     conv.p2m_conv_fused.launches_pipelined) = counted
+    (gated.p2m_conv_fused_gated.launches,
+     gated.p2m_conv_fused_gated.launches_pipelined) = counted[0].values()
+    (conv.p2m_conv_fused.launches,
+     conv.p2m_conv_fused.launches_pipelined) = counted[1].values()
     for name, ms in parts.items():
         print(f"[9] stream tick part: {name}: {ms:.3f} ms")
     row = rows["0.5"]
     return {"ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
+            "body": "ring" if depth >= 2 else "B1 body",
+            "blocks": list(stream["blocks"]),
             "ms_by_skip_share": {k: v["ms"] for k, v in rows.items()},
+            "turns_by_skip_share": {k: v["turns"] for k, v in rows.items()},
             "bound_ms_by_skip_share": {k: v["bound_ms"]
-                                       for k, v in rows.items()}}
+                                       for k, v in rows.items()},
+            "dense_b2_ms": dense_ms, "dense_b2_ms_by_images": fewer_ms,
+            "read_ms": read_ms, "empty_launch_ms": launch_ms,
+            "launch": launch}
 
 
 LM_ARCH = "rwkv6-3b"
@@ -1572,6 +1670,18 @@ def stem_launches(conv) -> dict:
 def reset_stem_launches(conv) -> None:
     conv.p2m_conv_fused.launches = 0
     conv.p2m_conv_fused.launches_pipelined = 0
+
+
+def gated_launches(gated) -> dict:
+    """B5's launch counts by body: B1's gated body and the ring."""
+    return {"p2m_conv_fused_gated": gated.p2m_conv_fused_gated.launches,
+            "p2m_conv_fused_gated_pipelined":
+                gated.p2m_conv_fused_gated.launches_pipelined}
+
+
+def reset_gated_launches(gated) -> None:
+    gated.p2m_conv_fused_gated.launches = 0
+    gated.p2m_conv_fused_gated.launches_pipelined = 0
 
 
 def check_pipelined_kernel(torch, np, dev, serve_in, adc):
@@ -2192,7 +2302,7 @@ def main() -> int:
     from repro_torch.data import SyntheticVWW
     from repro_torch.kernels import _build
     from repro_torch.configs import get_config
-    from repro_torch.kernels.p2m_conv import backward, conv, tune
+    from repro_torch.kernels.p2m_conv import backward, conv, gated, tune
     from repro_torch.kernels.p2m_conv import kernel as mm_kernel
     from repro_torch.kernels.p2m_conv.ops import _coeff_tuple
     from repro_torch.kernels.rwkv_wkv import kernel as wkv_kernel
@@ -2527,15 +2637,20 @@ def main() -> int:
             "max_abs_err": bwd_err[name],
             **bwd_rows[name],
         })
+    b5 = sum(stream["launches"][name] for name in gated_launches(gated))
+    check(b5 > 0, "p2m_conv_fused_gated launched no time on the main paths")
     kernels.append({
         "name": "p2m_conv_fused_gated",
         "route": "cuda",
         "source": "src/repro_torch/kernels/p2m_conv/csrc/p2m_conv.cu",
         "replaces": "src/repro/kernels/p2m_conv/gated.py:221",
-        # the gated stem runs on the stream path (its default on the card)
-        "launches": stream["launches"]["p2m_conv_fused_gated"],
-        "launches_by_path": {
-            "stream": stream["launches"]["p2m_conv_fused_gated"]},
+        # the gated stem runs on the stream path (its default on the card),
+        # on the body of the tuner's depth: the ring (launches_pipelined)
+        # or B1's
+        "launches": b5,
+        "launches_pipelined":
+            stream["launches"]["p2m_conv_fused_gated_pipelined"],
+        "launches_by_path": {"stream": b5},
         "max_abs_err": gated_err,
         **gated_row,
     })

@@ -243,11 +243,26 @@ def apply_p2m_conv_deploy(
               v_lsb=adc.v_lsb, max_count=adc.max_count)
     if impl == "plain":
         return p2m_conv_premixed_plain(images, wrows, shift, **kw)
-    # The tuner's blocks and depth, as the reference's deploy path takes
-    # them through `ops.p2m_conv` (B1, or B2's ring).
-    b, h, w, c = images.shape
-    bh, bn, depth = tune.get_conv_blocks(b, h, w, c, cfg.out_channels,
-                                         cfg.kernel, cfg.stride, coeffs,
-                                         mode, device=images.device)
+    bh, bn, depth = deploy_conv_blocks(images, cfg, model, mode=mode)
     return p2m_conv_fused(images, wrows, shift, block_h=bh, block_n=bn,
                           pipeline_depth=depth, **kw)
+
+
+def deploy_conv_blocks(
+    images: torch.Tensor,
+    cfg: P2MConvConfig,
+    model: PixelModel | None = None,
+    *,
+    mode: str = "quant",
+) -> tuple:
+    """``(block_h, block_n, pipeline_depth)`` the tuner gives the
+    deploy-form stem at the signature of ``images`` (B, H, W, C; only its
+    shape and device are read): B1, or B2's ring, as the reference's deploy
+    path takes them through `ops.p2m_conv`.  The one tuner key of the
+    deploy stem, shared by `apply_p2m_conv_deploy` and the stream
+    engine's gated stem, so both run the same blocks."""
+    b, h, w, c = images.shape
+    coeffs = _coeff_tuple(model or default_pixel_model())
+    return tune.get_conv_blocks(b, h, w, c, cfg.out_channels, cfg.kernel,
+                                cfg.stride, coeffs, mode,
+                                device=images.device)

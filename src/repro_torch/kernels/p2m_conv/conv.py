@@ -207,11 +207,11 @@ def _library():
         + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     lib.p2m_conv_gated_forward.restype = ctypes.c_int
     lib.p2m_conv_gated_forward.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12
         + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     lib.p2m_conv_pipelined_geometry.restype = ctypes.c_int
     lib.p2m_conv_pipelined_geometry.argtypes = (
-        [ctypes.c_int] * 11 + [ctypes.POINTER(ctypes.c_int)])
+        [ctypes.c_int] * 12 + [ctypes.POINTER(ctypes.c_int)])
     lib.p2m_conv_max_dx.restype = ctypes.c_int
     lib.p2m_conv_max_dx.argtypes = []
     return lib
@@ -313,12 +313,22 @@ def pipelined_launch(shape: tuple, n: int, dx: int, *, kernel: int,
                          f"{pipeline_depth}")
     b, h, w_dim, c = shape
     k, s = kernel, stride
-    bh, n_tile, nbuf = _pipelined_blocks(
+    blocks = _pipelined_blocks(
         b, conv_out_spatial(h, k, s), conv_out_spatial(w_dim, k, s), n, c,
         k, s, dx, block_h, block_n, pipeline_depth)
+    return ring_geometry(shape, n, dx, kernel, stride, blocks, gated=False)
+
+
+def ring_geometry(shape: tuple, n: int, dx: int, kernel: int, stride: int,
+                  blocks: tuple[int, int, int], *, gated: bool) -> dict:
+    """The C entry's report of the ring's launch at ``blocks`` (block_h,
+    N tile, ring slots), dense (B2) or ``gated`` (B5's ring body)."""
+    b, h, w_dim, c = shape
+    bh, n_tile, nbuf = blocks
     out = (ctypes.c_int * len(_GEOMETRY_KEYS))()
     err = _library().p2m_conv_pipelined_geometry(
-        b, h, w_dim, c, k, s, n, dx, n_tile, bh, nbuf, out)
+        b, h, w_dim, c, kernel, stride, n, dx, n_tile, bh, nbuf, int(gated),
+        out)
     if err != 0:
         raise RuntimeError(f"p2m_conv_pipelined_geometry: cudaError {err}")
     return {"block_h": bh, "n_tile": n_tile, "ring_slots": nbuf,

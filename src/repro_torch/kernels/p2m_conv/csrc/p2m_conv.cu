@@ -27,19 +27,27 @@
 // The quant epilogue divides (no reciprocal) and rounds half to even
 // (rintf), like jnp.round; build without --use_fast_math.
 //
-// The delta-gated stem (p2m_conv_gated_forward) replaces the TPU kernel
-// src/repro/kernels/p2m_conv/gated.py::p2m_conv_pallas_gated: B1 where
-// rerun[b] != 0, else a copy of cached[b], in one launch.  It is the same
-// kernel body instantiated with kGated = true, so a computed pixel runs
-// B1's arithmetic in B1's order and the result equals B1 followed by
-// where(rerun, ., cached) bit for bit.  Its grid puts the image on
-// blockIdx.z and tiles only that image's Ho*Wo pixels on blockIdx.x, so a
-// block never straddles two images (the part the reference's
-// aligned_block_h plays) and is all re-run or all skip.  A skipped block
-// stages no weights, reads no image byte and copies its pixels' N range
-// of the cache, coalesced.  At the stream shape (4 x 560 x 560 x 3, N = 8)
-// it moves 16.7 MB with every slot re-run and 3.2 MB with none: bytes
-// bound, and near launch latency either way.
+// The delta-gated stem (p2m_conv_gated_forward, B5) replaces the TPU
+// kernel src/repro/kernels/p2m_conv/gated.py::p2m_conv_pallas_gated: B1
+// where rerun[b] != 0, else a copy of cached[b], in one launch.  It has two
+// bodies, chosen by the caller's blocks as p2m_conv_fused chooses between
+// B1 and B2: the gated instance of B2's ring (nbuf >= 1, what the stream
+// engine runs at the tuner's blocks) and of B1's body (nbuf = 0: tuning
+// off, or blocks the ring does not take).  Each runs its dense body's
+// arithmetic in B1's order for a computed pixel, so the result equals B1
+// followed by where(rerun, ., cached) bit for bit.  No block straddles two
+// images: the ring's block_h divides Ho (the reference's aligned_block_h),
+// and B1's gated grid puts the image on blockIdx.z and tiles only its
+// Ho*Wo pixels on blockIdx.x.  So a block is all re-run or all skip, and
+// reads its image's flag before anything else.  A skipped block stages
+// nothing, reads no image byte and copies its pixels' N range of the
+// cache, in 16-byte units where alignment allows, each thread's loads
+// issued before its stores.  At the stream shape (4 x 560 x 560 x 3,
+// N = 8) it moves 16.7 MB with every slot re-run and 3.2 MB with none:
+// bytes bound.  B1's body made each thread wait on its ~75 image loads
+// one after another, with about 3 warps a scheduler to hide them, so
+// skipping half the slots saved 5 % of its time; the ring stages the
+// bands in coalesced cp.async copies before any arithmetic.
 //
 // The pipelined conv (p2m_conv_pipelined_forward, B2) replaces the TPU
 // kernel src/repro/kernels/p2m_conv/conv.py::p2m_conv_pallas with
@@ -86,9 +94,9 @@
 // another order and rounds it differently.  B2 keeps B1's order per pixel
 // (e ascending, j inner, x^(j+1) by repeated multiplication, a per-row
 // part, then acc += part with ki ascending, the same epilogue), so it
-// equals B1 bit for bit, and B5, which is B1's body, stays equal to
-// B1 + where; how pixels are tiled over threads does not enter a pixel's
-// sum.
+// equals B1 bit for bit, and B5, whose bodies are B1's and B2's, stays
+// equal to B1 + where; how pixels are tiled over threads does not enter a
+// pixel's sum.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -109,6 +117,58 @@ __device__ __forceinline__ float epilogue(float raw, float shift, int mode,
   if (mode == kRelu) return fminf(fmaxf(raw + shift, 0.0f), full_scale);
   const float counts = rintf(raw / v_lsb) + rintf(shift / v_lsb);
   return fminf(fmaxf(counts, 0.0f), max_count) * v_lsb;
+}
+
+constexpr int kCopyUnroll = 4;  // loads a thread issues before its stores
+
+// A skipped block of the gated stem: copies `pixels` consecutive pixels'
+// outputs [n0, n0 + n_end) of cached, rows of N floats from pixel `first`,
+// into out, in units of V (one or four floats).  Units are counted in 32
+// bits (a block has at most 512 pixels): unit i of the block lies `gap`
+// units further on for each pixel before its own, i / len; where the N
+// range covers N the span is contiguous (gap 0) and no division is made.
+template <typename V>
+__device__ __forceinline__ void copy_units(const float* __restrict__ cached,
+                                           float* __restrict__ out,
+                                           long long first, int pixels,
+                                           int N, int n0, int n_end) {
+  constexpr int kW = sizeof(V) / sizeof(float);
+  const long long base = first * N + n0;
+  const V* src = reinterpret_cast<const V*>(cached + base);
+  V* dst = reinterpret_cast<V*>(out + base);
+  const int len = n_end / kW;  // units a pixel
+  const int gap = N / kW - len;  // units between two pixels' ranges
+  const int count = pixels * len;
+  for (int i0 = threadIdx.x; i0 < count; i0 += kCopyUnroll * blockDim.x) {
+    V v[kCopyUnroll];
+    int at[kCopyUnroll];
+#pragma unroll
+    for (int u = 0; u < kCopyUnroll; ++u) {
+      const int i = i0 + u * blockDim.x;
+      at[u] = gap == 0 ? i : i + i / len * gap;
+      if (i < count) v[u] = src[at[u]];
+    }
+#pragma unroll
+    for (int u = 0; u < kCopyUnroll; ++u) {
+      if (i0 + u * blockDim.x < count) dst[at[u]] = v[u];
+    }
+  }
+}
+
+// The copy in 16-byte units where N, n0 and n_end are multiples of 4 and
+// both tensors 16-byte aligned (the stem's N = 8), else in 4-byte ones.
+__device__ __forceinline__ void copy_cached(const float* __restrict__ cached,
+                                            float* __restrict__ out,
+                                            long long first, int pixels,
+                                            int N, int n0, int n_end) {
+  const bool vec = N % 4 == 0 && n0 % 4 == 0 && n_end % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(cached) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec) {
+    copy_units<float4>(cached, out, first, pixels, N, n0, n_end);
+  } else {
+    copy_units<float>(cached, out, first, pixels, N, n0, n_end);
+  }
 }
 
 template <int DX, bool kGated>
@@ -140,12 +200,8 @@ p2m_conv_kernel(const float* __restrict__ images,
     m = first + threadIdx.x;
     m_end = min(first + (long long)blockDim.x, (blockIdx.z + 1) * hw);
     if (rerun[blockIdx.z] == 0) {  // skipped image: copy the cache
-      const int n_end = min(n_tile, N - n0);
-      const long long count = (m_end - first) * n_end;
-      for (long long idx = threadIdx.x; idx < count; idx += blockDim.x) {
-        const long long o = (first + idx / n_end) * N + n0 + idx % n_end;
-        out[o] = cached[o];
-      }
+      copy_cached(cached, out, first, (int)(m_end - first), N, n0,
+                  min(n_tile, N - n0));
       return;  // the whole block: no barrier follows for it
     }
   }
@@ -344,11 +400,19 @@ __device__ __forceinline__ void cp_async_wait_pending(int pending) {
 // pixels a lane would put P*s*C floats between lanes (30: a 2-way
 // conflict).  A pixel past the block's (a thread past T, a row past B*Ho)
 // is computed on the slot's first window and not stored.
-template <int DX, int NCH>
+//
+// Gated (kGated, the delta-gated stem B5): block_h divides Ho, so a
+// block's rows are one image's.  The block reads that image's rerun flag
+// first; a skipped block stages nothing, reads no image byte, copies its
+// pixels' N range of `cached` and returns whole, before any barrier.  A
+// re-run block runs the body below unchanged (raw_out is null).
+template <int DX, int NCH, bool kGated>
 __global__ void __launch_bounds__(pipe_max_threads<NCH>())
 p2m_conv_pipelined_kernel(const float* __restrict__ images,
                           const float* __restrict__ wrows,
                           const float* __restrict__ shift,
+                          const float* __restrict__ cached,
+                          const int* __restrict__ rerun,
                           float* __restrict__ out, float* __restrict__ raw_out,
                           int H, int W, int C, int k, int s, int Ho, int Wo,
                           int N, int block_h, int nbuf, long long rows_total,
@@ -367,6 +431,12 @@ p2m_conv_pipelined_kernel(const float* __restrict__ images,
   const int n_end = min(kTile, N - n0);
   const long long row0 = (long long)blockIdx.x * block_h;
   const int rows_here = (int)min((long long)block_h, rows_total - row0);
+  if constexpr (kGated) {
+    if (rerun[row0 / Ho] == 0) {  // skipped image: copy the cache
+      copy_cached(cached, out, row0 * Wo, rows_here * Wo, N, n0, n_end);
+      return;  // the whole block: no barrier follows for it
+    }
+  }
 
   // W~ columns past N stay zero in every slot: the copies never write them.
   const int pad = kTile - n_end;
@@ -566,19 +636,19 @@ PipeLaunch pipe_launch(const Args& a, int block_h, int nbuf) {
           pipelined_smem(Wo, a.C, a.k, a.s, DX, block_h, NCH * kChunk, nbuf)};
 }
 
-template <int DX, int NCH>
+template <int DX, int NCH, bool kGated>
 cudaError_t allow_smem(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(p2m_conv_pipelined_kernel<DX, NCH>,
+  return cudaFuncSetAttribute(p2m_conv_pipelined_kernel<DX, NCH, kGated>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
 }
 
-template <int DX, int NCH>
+template <int DX, int NCH, bool kGated>
 cudaError_t launch_pipelined(const Args& a, int block_h, int nbuf,
                              cudaStream_t stream) {
   const PipeLaunch l = pipe_launch<DX, NCH>(a, block_h, nbuf);
-  const cudaError_t err = allow_smem<DX, NCH>(l.smem);
+  const cudaError_t err = allow_smem<DX, NCH, kGated>(l.smem);
   if (err != cudaSuccess) return err;
   const int Ho = (a.H - a.k) / a.s + 1;
   const int Wo = (a.W - a.k) / a.s + 1;
@@ -587,28 +657,31 @@ cudaError_t launch_pipelined(const Args& a, int block_h, int nbuf,
                     (a.W * a.C) % 4 == 0 && band % 4 == 0;
   const int wvec16 =
       (reinterpret_cast<uintptr_t>(a.wrows) % 16 == 0) && a.N % 4 == 0;
-  p2m_conv_pipelined_kernel<DX, NCH><<<l.grid, l.threads, l.smem, stream>>>(
-      a.images, a.wrows, a.shift, a.out, a.raw, a.H, a.W, a.C, a.k, a.s, Ho,
+  p2m_conv_pipelined_kernel<DX, NCH, kGated>
+      <<<l.grid, l.threads, l.smem, stream>>>(
+      a.images, a.wrows, a.shift, a.cached, a.rerun, a.out, a.raw, a.H, a.W,
+      a.C, a.k, a.s, Ho,
       Wo, a.N, block_h, nbuf, (long long)a.B * Ho, vec16, wvec16, a.mode,
       a.v_lsb, (float)a.max_count, a.full_scale);
   return cudaGetLastError();
 }
 
 // What launch_pipelined would launch, and what the card makes of it.
-template <int DX, int NCH>
+template <int DX, int NCH, bool kGated>
 cudaError_t report_pipelined(const Args& a, int block_h, int nbuf,
                              int* geometry) {
   const PipeLaunch l = pipe_launch<DX, NCH>(a, block_h, nbuf);
-  cudaError_t err = allow_smem<DX, NCH>(l.smem);
+  cudaError_t err = allow_smem<DX, NCH, kGated>(l.smem);
   cudaFuncAttributes attr{};
   if (err == cudaSuccess) {
-    err = cudaFuncGetAttributes(&attr, p2m_conv_pipelined_kernel<DX, NCH>);
+    err = cudaFuncGetAttributes(&attr,
+                                p2m_conv_pipelined_kernel<DX, NCH, kGated>);
   }
   int blocks_per_sm = 0;
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks_per_sm, p2m_conv_pipelined_kernel<DX, NCH>, l.threads,
-        l.smem);
+        &blocks_per_sm, p2m_conv_pipelined_kernel<DX, NCH, kGated>,
+        l.threads, l.smem);
   }
   const int report[] = {(int)l.grid.x,          (int)l.grid.y,
                         l.threads,              (int)l.smem,
@@ -654,6 +727,13 @@ bool pipelined_takes(const Args& a, int block_h, int nbuf) {
          nbuf <= a.k && a.mode >= kRaw && a.mode <= kQuant;
 }
 
+// What the gated ring takes: what B2 takes, and block_h dividing Ho, so
+// that no block straddles two images.
+bool gated_pipelined_takes(const Args& a, int block_h, int nbuf) {
+  const int Ho = (a.H - a.k) / a.s + 1;
+  return pipelined_takes(a, block_h, nbuf) && Ho % block_h == 0;
+}
+
 }  // namespace
 
 // C entry point, loaded with ctypes.  All pointers are device pointers of
@@ -670,19 +750,31 @@ extern "C" int p2m_conv_forward(const float* images, const float* wrows,
   return dispatch<false>(a, dx, stream);
 }
 
-// The delta-gated stem: out[b] = B1(images[b]) where rerun[b] != 0, else
-// cached[b] (B, Ho, Wo, N).  rerun is int32 per image, on the device.
-// Same conventions as p2m_conv_forward; no raw output.
+// The delta-gated stem (B5): out[b] = B1(images[b]) where rerun[b] != 0,
+// else cached[b] (B, Ho, Wo, N).  rerun is int32 per image, on the device.
+// nbuf = 0 runs B1's gated body (its own tiling; block_h is not read);
+// nbuf >= 1 runs the gated instance of B2's ring with block_h rows of B*Ho
+// a block, block_h dividing Ho, as p2m_conv_pipelined_forward takes its
+// blocks.  Same conventions as p2m_conv_forward; no raw output.
 extern "C" int p2m_conv_gated_forward(const float* images, const float* wrows,
                                       const float* shift, const float* cached,
                                       const int* rerun, float* out, int B,
                                       int H, int W, int C, int k, int s,
-                                      int N, int dx, int n_tile, int mode,
-                                      float v_lsb, int max_count,
-                                      float full_scale, void* stream) {
+                                      int N, int dx, int n_tile, int block_h,
+                                      int nbuf, int mode, float v_lsb,
+                                      int max_count, float full_scale,
+                                      void* stream) {
   const Args a{images, wrows, shift, cached, rerun, out, nullptr, B, H, W, C,
                k, s, N, n_tile, mode, v_lsb, max_count, full_scale};
-  return dispatch<true>(a, dx, stream);
+  if (nbuf == 0) return dispatch<true>(a, dx, stream);
+  if (!gated_pipelined_takes(a, block_h, nbuf)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)with_pipelined(dx, n_tile, [&](auto d, auto nch) {
+    return launch_pipelined<decltype(d)::value, decltype(nch)::value, true>(
+        a, block_h, nbuf, st);
+  });
 }
 
 // The pipelined conv (B2): B1's function through a cp.async ring of
@@ -700,12 +792,13 @@ extern "C" int p2m_conv_pipelined_forward(
   if (!pipelined_takes(a, block_h, nbuf)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)with_pipelined(dx, n_tile, [&](auto d, auto nch) {
-    return launch_pipelined<decltype(d)::value, decltype(nch)::value>(
+    return launch_pipelined<decltype(d)::value, decltype(nch)::value, false>(
         a, block_h, nbuf, st);
   });
 }
 
-// The launch p2m_conv_pipelined_forward makes with these arguments, into
+// The launch p2m_conv_pipelined_forward (gated = 0) or the ring of
+// p2m_conv_gated_forward (gated = 1) makes with these arguments, into
 // geometry[8]: blocks in x and y, threads a block, dynamic shared memory
 // (bytes), pixels a thread, registers a thread, local memory a thread
 // (bytes: spills and stack), and blocks an SM as
@@ -713,14 +806,20 @@ extern "C" int p2m_conv_pipelined_forward(
 // nothing.  Returns a cudaError_t.
 extern "C" int p2m_conv_pipelined_geometry(int B, int H, int W, int C, int k,
                                            int s, int N, int dx, int n_tile,
-                                           int block_h, int nbuf,
+                                           int block_h, int nbuf, int gated,
                                            int* geometry) {
   const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                B, H, W, C, k, s, N, n_tile, kRaw, 1.0f, 0, 0.0f};
-  if (!pipelined_takes(a, block_h, nbuf)) return (int)cudaErrorInvalidValue;
+  if (!(gated ? gated_pipelined_takes(a, block_h, nbuf)
+              : pipelined_takes(a, block_h, nbuf))) {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)with_pipelined(dx, n_tile, [&](auto d, auto nch) {
-    return report_pipelined<decltype(d)::value, decltype(nch)::value>(
-        a, block_h, nbuf, geometry);
+    constexpr int kDx = decltype(d)::value, kNch = decltype(nch)::value;
+    return gated ? report_pipelined<kDx, kNch, true>(a, block_h, nbuf,
+                                                     geometry)
+                 : report_pipelined<kDx, kNch, false>(a, block_h, nbuf,
+                                                      geometry);
   });
 }
 

@@ -195,30 +195,50 @@ def matmul_candidates(m: int, k: int, n: int, *, dx: int = 3,
 # ---------------------------------------------------------------------------
 
 
+#: Clock cycles the card first spins for a candidate's three timed groups
+#: of launches (about 1 ms at the H100's clocks), while the host enqueues
+#: them; doubled, up to `_HOLD_MAX` times, where the host was slower.
+_HOLD_CYCLES = 2_000_000
+_HOLD_MAX = 8
+
+
 def _time_once(fn: Callable, cand, device: torch.device, *,
                iters: int) -> float:
     """Seconds a run of ``fn(cand)``: after one warm-up run, the median
     over three groups of ``iters`` runs back to back, each group timed
     whole (CUDA events on a CUDA device, the host clock elsewhere), so a
-    kernel of tens of microseconds is not timed as one event pair."""
+    kernel of tens of microseconds is not timed as one event pair.  On a
+    CUDA device the stream spins once, for `_HOLD_CYCLES`, while the host
+    enqueues all three groups: a wrapper's host time (tens of
+    microseconds, more than a stem kernel's device time) then falls
+    outside the events instead of between the launches.  Where the spin
+    had ended before the host was done (the first event already
+    reached), the groups are timed again with twice the spin."""
     fn(cand)
-    times = []
-    for _ in range(3):
-        if device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(iters):
-                fn(cand)
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / 1e3 / iters)
-        else:
+    if device.type != "cuda":
+        times = []
+        for _ in range(3):
             t0 = time.perf_counter()
             for _ in range(iters):
                 fn(cand)
             times.append((time.perf_counter() - t0) / iters)
-    return statistics.median(times)
+        return statistics.median(times)
+    hold = _HOLD_CYCLES
+    while True:
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda._sleep(hold)
+        events[0].record()
+        for end in events[1:]:
+            for _ in range(iters):
+                fn(cand)
+            end.record()
+        held = not events[0].query()
+        events[-1].synchronize()
+        if held or hold >= _HOLD_MAX * _HOLD_CYCLES:
+            break
+        hold *= 2
+    return statistics.median(a.elapsed_time(b) / 1e3 / iters
+                             for a, b in zip(events, events[1:]))
 
 
 def autotune(key: tuple, setup: Callable[[], tuple[Iterable, Callable]],

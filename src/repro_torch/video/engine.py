@@ -21,9 +21,12 @@ the CenterNet-lite heads and the top-k decode.  Two stem paths
   ``torch.where`` with the cache: every skipped slot still pays the stem.
 * ``"gated"`` — the delta-gated stem kernel
   (`kernels/p2m_conv/gated.py`): the mask and the cache go into the
-  kernel, skipped slots copy the cache, one launch.  Bitwise equal to the
-  where path.  ``"auto"`` picks it on a CUDA engine, ``"where"`` on the
-  CPU (where the gated wrapper would only run its plain twin).
+  kernel, skipped slots copy the cache, one launch.  It runs at the
+  blocks the tuner gives the where path's stem for the same signature
+  (`core.p2m_conv.deploy_conv_blocks`), so both paths run the same body,
+  B1's or B2's ring.  Bitwise equal to the where path.  ``"auto"`` picks it on a
+  CUDA engine, ``"where"`` on the CPU (where the gated wrapper would only
+  run its plain twin).
 
 The cached stem is validated on the device: a slot whose cache holds a
 non-finite value is forced to re-run, the **effective** mask comes back
@@ -55,7 +58,7 @@ from repro_torch.core.bandwidth import (
     frame_output_bits,
 )
 from repro_torch.core.bn_fold import deploy_params
-from repro_torch.core.p2m_conv import premix_deploy
+from repro_torch.core.p2m_conv import deploy_conv_blocks, premix_deploy
 from repro_torch.core.quant import QuantSpec, quantize_deploy
 from repro_torch.kernels.p2m_conv.gated import p2m_conv_fused_gated
 from repro_torch.models.mobilenetv2 import (
@@ -148,18 +151,22 @@ def _stream_forward_for(cfg: MNV2Config, dcfg: DetectConfig,
     if stem_path not in ("gated", "where"):
         raise ValueError(f"unknown stem_path {stem_path!r}")
     grid = det_grid(cfg.p2m.out_spatial(cfg.image_size))
-    adc = cfg.p2m.adc
+    p2m = cfg.p2m
+    adc = p2m.adc
 
     def forward(params, bn, dep, det, images, cached, rerun):
         cache_ok = torch.isfinite(cached).flatten(1).all(dim=1)
         rerun = rerun | ~cache_ok
         if stem_path == "gated":
             # the deploy-form stem (conv → quantizing ADC epilogue, as
-            # apply_p2m_conv_deploy) with the select inside the kernel
+            # apply_p2m_conv_deploy) with the select inside the kernel, at
+            # the blocks the tuner gives apply_p2m_conv_deploy
+            block_h, block_n, depth = deploy_conv_blocks(images, p2m)
             stem = p2m_conv_fused_gated(
                 images, dep["wrows"], dep["shift"], cached, rerun,
-                kernel=cfg.p2m.kernel, stride=cfg.p2m.stride, mode="quant",
-                v_lsb=adc.v_lsb, max_count=adc.max_count)
+                kernel=p2m.kernel, stride=p2m.stride, mode="quant",
+                v_lsb=adc.v_lsb, max_count=adc.max_count, block_h=block_h,
+                block_n=block_n, pipeline_depth=depth)
         else:
             stem, _ = apply_mnv2_stem(params, bn, images, cfg,
                                       p2m_deploy=dep)

@@ -10,8 +10,9 @@ relu rtol 1e-5 / atol 1e-6; quant counts may differ by one in at most
 1e-4 of the elements, only at half counts.  The backward kernels (B3 dX,
 B4 dW) are held to their plain twins computed in float64 within 1e-4 of
 the largest |plain| (fp32 sums over up to 10^5 rows in another order).
-The gated stem (B5) equals B1 followed by ``torch.where`` bit for bit,
-and its plain twin to B1's tolerances.  The pipelined conv (B2) equals B1
+The gated stem (B5), on either body, equals B1 followed by
+``torch.where`` bit for bit, and its plain twin to B1's tolerances; a
+skipped slot keeps its cache's bits, NaN payloads included.  The pipelined conv (B2) equals B1
 bit for bit, raw included, whatever its blocks and depth, and so do the
 gradients through it.  The P²M product (B6) is held to its plain twin at
 B1's tolerances, and its gradients (B3, B4 through `ops.p2m_matmul`) to
@@ -316,31 +317,100 @@ GATED_MASKS = {"all rerun": [1, 1, 1, 1], "all skip": [0, 0, 0, 0],
 
 @pytest.mark.parametrize("b,h,w,c,k,s,n", GATED_GEOMETRIES)
 @pytest.mark.parametrize("mode", ["raw", "relu", "quant"])
+@pytest.mark.parametrize("depth", [0, 2, 3])
 def test_gated_kernel_is_b1_then_where_bit_for_bit(cuda, b, h, w, c, k, s,
-                                                   n, mode):
+                                                   n, mode, depth):
+    """Both gated bodies (depth 0: B1's; 2, 3: the ring) at block_h None,
+    1, 2 and 3 (clamped to a divisor of Ho): B1 + where and the dense
+    kernel at the same blocks + where, bit for bit, in every mask."""
     x, wrows, shift = _data(b, h, w, c, k, n, cuda)
     ho, wo = (h - k) // s + 1, (w - k) // s + 1
     cached = torch.rand((b, ho, wo, n), generator=torch.Generator()
                         .manual_seed(1)).to(cuda)
     kw = dict(kernel=k, stride=s, mode=mode)
-    dense = conv.p2m_conv_fused(x, wrows, shift, **kw)
-    for name, mask in GATED_MASKS.items():
-        rerun = torch.tensor(mask[:b], dtype=torch.bool, device=cuda)
-        before = gated.p2m_conv_fused_gated.launches
-        got = gated.p2m_conv_fused_gated(x, wrows, shift, cached, rerun, **kw)
+    b1 = conv.p2m_conv_fused(x, wrows, shift, **kw)
+    counter = "launches_pipelined" if depth else "launches"
+    for block_h in (None, 1, 2, 3):
+        aligned = gated.aligned_block_h(
+            ho, block_h or conv.default_block_h(b * ho, wo))
+        dense = conv.p2m_conv_fused(x, wrows, shift, block_h=aligned,
+                                    pipeline_depth=depth, **kw)
+        for name, mask in GATED_MASKS.items():
+            rerun = torch.tensor(mask[:b], dtype=torch.bool, device=cuda)
+            before = getattr(gated.p2m_conv_fused_gated, counter)
+            got = gated.p2m_conv_fused_gated(x, wrows, shift, cached, rerun,
+                                             block_h=block_h,
+                                             pipeline_depth=depth, **kw)
+            torch.cuda.synchronize()
+            assert getattr(gated.p2m_conv_fused_gated, counter) == before + 1
+            select = rerun[:, None, None, None]
+            case = (block_h, name)
+            assert torch.equal(got, torch.where(select, b1, cached)), case
+            assert torch.equal(got, torch.where(select, dense, cached)), case
+            plain = gated.p2m_conv_gated_plain(x, wrows, shift, cached,
+                                               rerun, **kw)
+            if mode == "quant":
+                _, raw = conv.p2m_conv_premixed_plain(
+                    x, wrows, torch.zeros_like(shift), mode="raw",
+                    want_raw=True, kernel=k, stride=s)
+                _assert_quant_close(got, plain, raw)
+            else:
+                torch.testing.assert_close(got, plain, rtol=RTOL, atol=ATOL)
+
+
+#: float32 bit patterns a copy must keep: quiet and signalling NaNs of
+#: either sign with payloads, +inf, -inf, -0.0 and the smallest subnormal.
+SPECIAL_BITS = np.array([0x7FC00001, 0xFFC12345, 0x7F800001, 0xFFBFFFFF,
+                         0x7F800000, 0xFF800000, 0x80000000, 0x00000001],
+                        dtype=np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_gated_skips_copy_the_cache_bit_for_bit(cuda, depth, offset):
+    """A skipped slot's output is its cache's bits, NaN payloads and
+    infinities included, from a 16-byte-aligned cache (16-byte copies)
+    and from one a float past such an address (4-byte copies)."""
+    b, h, w, c, k, s, n = GATED_GEOMETRIES[0]
+    x, wrows, shift = _data(b, h, w, c, k, n, cuda)
+    ho, wo = (h - k) // s + 1, (w - k) // s + 1
+    bits = np.random.default_rng(2).integers(
+        -2**31, 2**31, size=(b, ho * wo * n), dtype=np.int64).astype(np.int32)
+    bits[:, :len(SPECIAL_BITS)] = SPECIAL_BITS
+    bits[:, -len(SPECIAL_BITS):] = SPECIAL_BITS
+    buf = torch.empty(bits.size + offset, dtype=torch.int32, device=cuda)
+    buf[offset:].copy_(torch.from_numpy(bits.reshape(-1)))
+    cached = buf[offset:].view(torch.float32).view(b, ho, wo, n)
+    assert (cached.data_ptr() % 16 != 0) == bool(offset)
+    want = cached.view(torch.int32)
+    for name in ("all skip", "mixed", "one slot"):
+        rerun = torch.tensor(GATED_MASKS[name][:b], dtype=torch.bool,
+                             device=cuda)
+        got = gated.p2m_conv_fused_gated(x, wrows, shift, cached, rerun,
+                                         kernel=k, stride=s, mode="quant",
+                                         pipeline_depth=depth)
         torch.cuda.synchronize()
-        assert gated.p2m_conv_fused_gated.launches == before + 1
-        want = torch.where(rerun[:, None, None, None], dense, cached)
-        assert torch.equal(got, want), name
-        plain = gated.p2m_conv_gated_plain(x, wrows, shift, cached, rerun,
-                                           **kw)
-        if mode == "quant":
-            _, raw = conv.p2m_conv_premixed_plain(
-                x, wrows, torch.zeros_like(shift), mode="raw",
-                want_raw=True, kernel=k, stride=s)
-            _assert_quant_close(got, plain, raw)
-        else:
-            torch.testing.assert_close(got, plain, rtol=RTOL, atol=ATOL)
+        skipped = ~rerun
+        assert torch.equal(got.view(torch.int32)[skipped], want[skipped]), \
+            name
+
+
+def test_gated_launch_spills_nothing(cuda):
+    """The ring body's gated instantiation at the stream signature (4 x
+    560², N = 8, dx = 3): the dense B2's launch at the same blocks, no
+    local memory; block_h 3 does not divide Ho = 112 and clamps to 2."""
+    shape = (4, 560, 560, 3)
+    for depth in (2, 3):
+        for bh in (1, 2, 4):
+            kw = dict(kernel=5, stride=5, block_h=bh, pipeline_depth=depth)
+            geo = gated.gated_launch(shape, 8, 3, **kw)
+            dense = conv.pipelined_launch(shape, 8, 3, **kw)
+            for key in ("block_h", "blocks_x", "blocks_y", "threads",
+                        "smem_bytes", "pixels_per_thread"):
+                assert geo[key] == dense[key], (key, bh, depth)
+            assert geo["local_bytes"] == 0 and geo["blocks_per_sm"] >= 1
+    assert gated.gated_launch(shape, 8, 3, kernel=5, stride=5, block_h=3,
+                              pipeline_depth=2)["block_h"] == 2
 
 
 def test_gated_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -371,13 +441,31 @@ def test_gated_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     wide = torch.zeros((5, 15 * 5, 8), device=cuda)  # dx = 5
     with pytest.raises(ValueError, match="dx=5"):
         gated.p2m_conv_fused_gated(x, wide, shift, cached, rerun, **kw)
+    for bad in (1, -2):
+        with pytest.raises(ValueError, match="pipeline_depth"):
+            gated.p2m_conv_fused_gated(x, wrows, shift, cached, rerun,
+                                       pipeline_depth=bad, **kw)
+    xw = _data(1, 60, 600, 3, 5, 8, cuda)[0]  # Ho = 12, Wo = 120
+    with pytest.raises(ValueError, match="threads"):  # 12 x 120 pixels
+        gated.p2m_conv_fused_gated(
+            xw, wrows, shift, torch.zeros((1, 12, 120, 8), device=cuda),
+            rerun[:1], pipeline_depth=2, block_h=12, **kw)
+
+
+def _gated_launches():
+    """B5's launches by body: (B1's gated body, the ring)."""
+    return (gated.p2m_conv_fused_gated.launches,
+            gated.p2m_conv_fused_gated.launches_pipelined)
 
 
 def test_gated_stream_on_the_card(cuda):
     """A short stream through the engine on the card: the gated path by
-    default, one B5 launch a tick and no B1; the same boxes and scores as
-    the where path, bit for bit; half the hold-2 frames skipped."""
+    default, one B5 launch a tick on the body of the tuner's depth (the
+    ring, at a ring winner set in the tuner's cache) and no B1 or B2; the
+    same boxes and scores as the where path, bit for bit; half the hold-2
+    frames skipped."""
     torch.backends.cudnn.deterministic = True
+    tune.cache_clear()
     try:
         params, bn = init_mnv2(torch.Generator().manual_seed(0), SMOKE,
                                device=cuda)
@@ -387,24 +475,29 @@ def test_gated_stream_on_the_card(cuda):
         frames = [SyntheticVideo(image_size=SMOKE.image_size, n_frames=n,
                                  hold=2, seed=i).frames()
                   for i, n in enumerate([6, 4, 6])]
+        p2m = SMOKE.p2m
+        tune.get_conv_blocks(2, SMOKE.image_size, SMOKE.image_size, 3,
+                             p2m.out_channels, p2m.kernel, p2m.stride,
+                             COEFFS, "quant", device=cuda)
+        (key,) = tune.cache_info()
+        tune.set_winner(key, (1, 8, 2))
         runs = {}
         for path in ("auto", "where"):
             eng = StreamEngine(params, bn, SMOKE, det, max_streams=2,
                                stem_path=path)
-            counts = (gated.p2m_conv_fused_gated.launches,
-                      _stem_launches())
+            counts = (_gated_launches(), _stem_launches())
             done = eng.run([StreamRequest(uid=i, frames=f)
                             for i, f in enumerate(frames)],
                            on_undrained="raise")
             runs[eng.stem_path] = (eng, done, (
-                gated.p2m_conv_fused_gated.launches - counts[0],
+                tuple(a - b for a, b in zip(_gated_launches(), counts[0])),
                 _stem_launches() - counts[1]))
         eng, done, (n_b5, n_b1) = runs["gated"]
         assert eng.device.type == "cuda"
-        assert (n_b5, n_b1) == (eng.stats["launches"], 0)
+        assert (n_b5, n_b1) == ((0, eng.stats["launches"]), 0)
         assert eng.stream_summary()["stem_flops_skipped_ratio"] == 0.5
         w_eng, w_done, (w_b5, w_b1) = runs["where"]
-        assert (w_b5, w_b1) == (0, w_eng.stats["launches"])
+        assert (w_b5, w_b1) == ((0, 0), w_eng.stats["launches"])
         for a, b in zip(done, w_done):
             assert a.uid == b.uid and a.skip_count == b.skip_count
             for (ba, sa), (bb, sb) in zip(a.frame_outputs, b.frame_outputs):
@@ -412,6 +505,7 @@ def test_gated_stream_on_the_card(cuda):
                 np.testing.assert_array_equal(sa, sb)
     finally:
         torch.backends.cudnn.deterministic = False
+        tune.cache_clear()
 
 
 # ------------------------------------------------------------------ WKV (B7)

@@ -33,7 +33,9 @@ from repro.video import StreamRequest as JStreamRequest
 from repro.video import init_detect_head as j_init_detect_head
 from repro_torch import compat
 from repro_torch.core.bandwidth import frame_output_bits
-from repro_torch.kernels.p2m_conv import conv, gated
+from repro_torch.core.pixel_model import default_pixel_model
+from repro_torch.kernels.p2m_conv import conv, gated, tune
+from repro_torch.kernels.p2m_conv.ops import _coeff_tuple
 from repro_torch.models.mobilenetv2 import MNV2Config, init_mnv2
 from repro_torch.video import (
     DeltaGateConfig,
@@ -43,6 +45,7 @@ from repro_torch.video import (
     SyntheticVideo,
     init_detect_head,
 )
+from repro_torch.video import engine as engine_module
 from repro_torch.video.engine import _stream_forward_for
 
 SIZE = 40
@@ -327,6 +330,41 @@ def test_gated_engine_bitwise_matches_where_reference(models):
     assert sg["stem_path"] == "gated"
     assert sg["stem_flops_skipped_ratio"] == pytest.approx(0.5)
     assert where.stream_summary()["stem_flops_skipped_ratio"] == 0.0
+
+
+def test_gated_engine_runs_at_the_tuners_blocks(models, monkeypatch):
+    """The gated path asks the tuner for the where path's signature (the
+    key `core.p2m_conv.deploy_conv_blocks` builds for both paths) and
+    hands the gated wrapper its blocks; its detections stay the where
+    path's, bit for bit."""
+    asked, handed = [], []
+
+    def recorder(*args, **kw):
+        asked.append((args, kw))
+        return (3, None, 2)
+
+    def gated_wrapper(*args, **kw):
+        handed.append((kw["block_h"], kw["block_n"], kw["pipeline_depth"]))
+        return gated.p2m_conv_fused_gated(*args, **kw)
+
+    monkeypatch.setattr(tune, "get_conv_blocks", recorder)
+    monkeypatch.setattr(engine_module, "p2m_conv_fused_gated", gated_wrapper)
+    gated_e = _engine(models[1], stem_path="gated")
+    done_g = gated_e.run(_streams(_frames([6, 6, 6])))
+    ticks = gated_e.stats["launches"]
+    p2m = CFG.p2m
+    signature = (gated_e.n_slots, SIZE, SIZE, 3, p2m.out_channels,
+                 p2m.kernel, p2m.stride, _coeff_tuple(default_pixel_model()),
+                 "quant")
+    assert asked == [(signature, {"device": torch.device("cpu")})] * ticks
+    assert handed == [(3, None, 2)] * ticks
+    done_w = _engine(models[1], stem_path="where").run(
+        _streams(_frames([6, 6, 6])))
+    for g, w in zip(done_g, done_w):
+        assert g.uid == w.uid and g.skip_count == w.skip_count
+        for (bg, sg), (bw, sw) in zip(g.frame_outputs, w.frame_outputs):
+            np.testing.assert_array_equal(bg, bw)
+            np.testing.assert_array_equal(sg, sw)
 
 
 def test_stream_forward_rejects_unknown_stem_path(models):

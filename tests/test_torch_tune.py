@@ -313,6 +313,46 @@ def test_autotune_records_a_failed_candidate(clean_tuner):
                       iters=1)
 
 
+@pytest.mark.parametrize("needed,holds", [
+    (1, [1]), (4, [1, 2, 4]), (None, [1, 2, 4, 8])])
+def test_time_once_holds_the_card_once_a_candidate(monkeypatch, needed,
+                                                   holds):
+    """On a CUDA device a candidate's three timed groups follow one spin
+    of `_HOLD_CYCLES`; where the spin had ended before the host was done
+    (the first event already reached), they are timed again with twice
+    the spin, up to `_HOLD_MAX` times.  ``needed``: the spin (in units of
+    `_HOLD_CYCLES`) that outlasts the host, None for never.  CUDA is
+    replaced by a clock that moves 1 ms a recorded event."""
+    unit = tune._HOLD_CYCLES
+    sleeps, calls, clock = [], [], [0.0]
+
+    class Event:
+        def __init__(self, enable_timing):
+            assert enable_timing
+
+        def record(self):
+            self.t = clock[0]
+            clock[0] += 1.0
+
+        def query(self):
+            return needed is None or sleeps[-1] < needed * unit
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, other):
+            return other.t - self.t
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "_sleep", sleeps.append)
+    seconds = tune._time_once(calls.append, "cand", torch.device("cuda"),
+                              iters=5)
+    assert sleeps == [h * unit for h in holds]
+    assert holds[-1] == (needed or tune._HOLD_MAX)
+    assert len(calls) == 1 + 3 * 5 * len(holds)  # one warm-up run
+    assert seconds == pytest.approx(1e-3 / 5)
+
+
 def test_set_winner_serves_the_chosen_blocks(clean_tuner):
     hits = default_registry().counter("autotune.cache_hit")
     args = (1, 12, 12, 3, 8, 3, 3, COEFFS, "relu")

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from repro.core import bandwidth as jbw
+from repro.kernels.p2m_conv.gated import aligned_block_h as j_aligned_block_h
 from repro.kernels.p2m_conv.gated import (
     p2m_conv_gated_jnp,
     p2m_conv_pallas_gated,
@@ -355,24 +356,30 @@ def _run_gated(geom, mask, mode, seed=0):
     return got, (xla, pallas), cached, rerun, raw
 
 
+def _assert_gated_close(got, ref, cached, rerun, raw, mode):
+    """Skipped slots: the cache, bit for bit; computed slots: raw and
+    relu at RTOL/ATOL, quant by the count rule."""
+    np.testing.assert_array_equal(got[~rerun], cached[~rerun])
+    np.testing.assert_array_equal(ref[~rerun], cached[~rerun])
+    if mode == "quant":
+        rep = conv.quant_disagreement(
+            torch.from_numpy(got[rerun]), torch.from_numpy(ref[rerun]),
+            raw[torch.from_numpy(rerun)], V_LSB)
+        assert rep["max_count_diff"] <= 1, rep
+        assert rep["n_diff"] <= 1e-4 * got[rerun].size, rep
+        assert rep["all_near_half"], rep
+    else:
+        np.testing.assert_allclose(got[rerun], ref[rerun], rtol=RTOL,
+                                   atol=ATOL)
+
+
 @pytest.mark.parametrize("geom", GATED_GEOMETRIES)
 @pytest.mark.parametrize("mask", list(MASKS))
 @pytest.mark.parametrize("mode", ["raw", "relu", "quant"])
 def test_gated_plain_twin_matches_reference(geom, mask, mode):
     got, refs, cached, rerun, raw = _run_gated(geom, MASKS[mask], mode)
-    np.testing.assert_array_equal(got[~rerun], cached[~rerun])
     for ref in refs:
-        np.testing.assert_array_equal(ref[~rerun], cached[~rerun])
-        if mode == "quant":
-            rep = conv.quant_disagreement(
-                torch.from_numpy(got[rerun]), torch.from_numpy(ref[rerun]),
-                raw[torch.from_numpy(rerun)], V_LSB)
-            assert rep["max_count_diff"] <= 1, rep
-            assert rep["n_diff"] <= 1e-4 * got[rerun].size, rep
-            assert rep["all_near_half"], rep
-        else:
-            np.testing.assert_allclose(got[rerun], ref[rerun], rtol=RTOL,
-                                       atol=ATOL)
+        _assert_gated_close(got, ref, cached, rerun, raw, mode)
 
 
 @pytest.mark.parametrize("mode", ["raw", "relu", "quant"])
@@ -417,3 +424,57 @@ def test_gated_wrapper_on_the_cpu_runs_the_plain_twin():
     assert torch.equal(got, gated.p2m_conv_fused_gated(
         imgs, wrows, sh, cached, rerun.to(torch.int32), kernel=k, stride=s,
         mode="quant"))
+
+
+def test_aligned_block_h_is_the_reference():
+    """The port's copy of the slot-aligned row tile (the ring body's
+    block_h clamp) equals the reference's for every Ho and block_h in
+    1..130."""
+    for ho in range(1, 131):
+        for bh in range(1, 131):
+            assert gated.aligned_block_h(ho, bh) == j_aligned_block_h(
+                ho, bh), (ho, bh)
+
+
+@pytest.mark.parametrize("depth", [0, 2, 3])
+@pytest.mark.parametrize("block_h", [None, 1, 3, 7])
+def test_gated_wrapper_on_the_cpu_takes_any_blocks(depth, block_h):
+    """On the CPU the wrapper runs the plain twin whatever blocks it is
+    asked for (at Ho = 4, block_h 3 and 7 clamp to 2 and 4 on the card),
+    and agrees with the reference's gated kernel at the same block_h."""
+    b, h, w, c, k, s, n = GATED_GEOMETRIES[0]
+    imgs, wt, sh, cached = _gated_data(b, h, w, c, k, s, n, 4)
+    rerun = np.asarray(MASKS["mixed"], bool)
+    args = [torch.from_numpy(a) for a in (imgs, wt, sh, cached, rerun)]
+    wrows = conv.premix_rows(args[1], COEFFS, k)
+    kw = dict(kernel=k, stride=s, mode="quant")
+    before = (gated.p2m_conv_fused_gated.launches,
+              gated.p2m_conv_fused_gated.launches_pipelined)
+    got = gated.p2m_conv_fused_gated(args[0], wrows, args[2], args[3],
+                                     args[4], block_h=block_h,
+                                     pipeline_depth=depth, **kw)
+    assert (gated.p2m_conv_fused_gated.launches,
+            gated.p2m_conv_fused_gated.launches_pipelined) == before
+    assert torch.equal(got, gated.p2m_conv_gated_plain(
+        args[0], wrows, args[2], args[3], args[4], **kw))
+    ref = np.asarray(p2m_conv_pallas_gated(
+        *(jnp.asarray(a) for a in (imgs, wt, sh, cached, rerun)),
+        coeffs=COEFFS, interpret=True, block_h=block_h, **kw))
+    _, raw = conv.p2m_conv_premixed_plain(
+        args[0], wrows, torch.zeros(n), mode="raw", want_raw=True, kernel=k,
+        stride=s)
+    _assert_gated_close(got.numpy(), ref, cached, rerun, raw, "quant")
+
+
+@pytest.mark.parametrize("depth", [1, -1, -2])
+def test_gated_wrapper_refuses_depths_the_conv_refuses(depth):
+    b, h, w, c, k, s, n = GATED_GEOMETRIES[0]
+    imgs, wt, sh, cached = (torch.from_numpy(a) for a in _gated_data(
+        b, h, w, c, k, s, n, 5))
+    wrows = conv.premix_rows(wt, COEFFS, k)
+    rerun = torch.ones(b, dtype=torch.bool)
+    kw = dict(kernel=k, stride=s, pipeline_depth=depth)
+    with pytest.raises(ValueError, match="pipeline_depth"):
+        conv.p2m_conv_fused(imgs, wrows, sh, **kw)
+    with pytest.raises(ValueError, match="pipeline_depth"):
+        gated.p2m_conv_fused_gated(imgs, wrows, sh, cached, rerun, **kw)
