@@ -107,7 +107,9 @@ no result:
    and training shapes, each with its launch: pixels a thread, threads,
    blocks an SM, registers and local bytes, none spilled, one read of
    the images by `amax` and the library conv; B6 with its tuned
-   blocks);
+   blocks; B4's two passes apart, by the profiler, and its launch:
+   blocks, threads, shared memory, registers, blocks an SM and local
+   bytes, which must be 0);
    the vision engine's time per launch and its parts; the stream
    engines' time per tick and its parts; the train step's time and its
    parts; B7 at the serving tick's shape (with its launch geometry:
@@ -116,6 +118,9 @@ no result:
 10. one JSON line ``{"kernels": [...]}`` (B1-B7);
 11. the card's name and power limit as nvidia-smi gives them, then the
     last line ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --b4`` runs phases 1, 4 and B4's times alone
+(`b4_only`), on this tree or, copied into its root, on an older one.
 """
 from __future__ import annotations
 
@@ -620,7 +625,97 @@ def time_backward_kernels(torch, bwd, flush):
               f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
               f"matmul of the contraction {row['library_ms']:.4f} ms; bound "
               f"{row['bound_ms']:.4f} ms by {row['bound_by']}")
+    # B4's two passes apart, and its launch
+    passes = b4_passes(torch, g, w, x, coeffs, flush)
+    check(bool(passes), "the profiler saw no device time of B4")
+    launch = backward.dw_launch(m, kk, n, dx)
+    check(launch["local_bytes"] == 0 and launch["pass2_local_bytes"] == 0,
+          f"B4 spills to local memory: {launch}")
+    rows["p2m_bwd_dw"]["passes_ms"] = passes
+    # one read of B4's inputs under the same timing: the flush leaves L2
+    # dirty, so a read of X and G pays for write-backs too
+    read_ms = cuda_ms(torch, lambda: (x.amax(), g.amax()), flush)
+    print("[9] p2m_bwd_dw by kernel (mean of "
+          f"{REPS}, profiler, L2 flushed): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in passes.items())
+          + f"; one read of X and G (amax) {read_ms:.4f} ms")
+    print(f"[9] p2m_bwd_dw launch: pass one {launch['blocks_x']} x "
+          f"{launch['blocks_y']} blocks of {launch['threads']} threads "
+          f"({launch['rows_per_block']} rows a block in tiles of "
+          f"{launch['tile_rows']}), {launch['smem_bytes']} B dynamic shared "
+          f"memory, {launch['registers']} registers, "
+          f"{launch['local_bytes']} B local, {launch['blocks_per_sm']} "
+          f"blocks an SM; pass two {launch['pass2_blocks']} blocks of "
+          f"{launch['pass2_threads']} threads, {launch['pass2_registers']} "
+          f"registers, {launch['pass2_local_bytes']} B local, "
+          f"{launch['pass2_blocks_per_sm']} blocks an SM")
     return rows
+
+
+def b4_passes(torch, g, w, x, coeffs, flush) -> dict:
+    """B4's device time by kernel: ``torch.profiler`` (CUPTI) over REPS
+    calls at these inputs, L2 flushed before each; the mean ms a launch
+    of each kernel whose name holds ``p2m_bwd_dw``, by its short name.
+    Empty where the profiler saw no device time.  Restores the count."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.p2m_conv import backward
+
+    counted = backward.p2m_bwd_dw.launches
+    for _ in range(3):
+        backward.p2m_bwd_dw(g, w, x, coeffs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPS):
+            flush.zero_()
+            backward.p2m_bwd_dw(g, w, x, coeffs)
+        torch.cuda.synchronize()
+    backward.p2m_bwd_dw.launches = counted
+    out = {}
+    for ev in prof.key_averages():
+        found = re.search(r"p2m_bwd_dw\w*(<\d+>)?", ev.key)
+        total = (getattr(ev, "device_time_total", 0)
+                 or getattr(ev, "cuda_time_total", 0))
+        if found and total > 0 and ev.count:
+            out[found.group(0)] = total / ev.count / 1e3
+    return out
+
+
+def b4_only(torch, np, dev) -> int:
+    """``chip_smoke.py --b4``: phase 1, the build of ``p2m_bwd.cu`` with
+    its ptxas lines, phase 4, then B4 at the training shape timed whole
+    (CUDA events) and by kernel (`b4_passes`).  It reads only what every
+    tree of the port since PR 13 has, so a copy of this script in the
+    root of an older tree times that tree's B4."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.p2m_conv import backward
+
+    print(f"[1] card: {smi_line()}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
+    backward.build_p2m_bwd()
+    seconds, report = _build.BUILD_INFO["p2m_bwd"]
+    print(f"[2] p2m_bwd.cu: nvcc {seconds:.2f} s")
+    for line in ptxas_summary(report):
+        print(f"    ptxas: {line}")
+    bwd_err, bwd = check_backward_kernels(torch, np, dev)
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
+                        device=dev)
+    g, w, x, coeffs = (bwd[k] for k in ("g", "w", "x", "coeffs"))
+    ms = cuda_ms(torch, lambda: backward.p2m_bwd_dw(g, w, x, coeffs), flush)
+    passes = b4_passes(torch, g, w, x, coeffs, flush)
+    check(bool(passes), "the profiler saw no device time of B4")
+    read_ms = cuda_ms(torch, lambda: (x.amax(), g.amax()), flush)
+    print(f"[9] p2m_bwd_dw at M={x.shape[0]} K={x.shape[1]} N={g.shape[1]}: "
+          f"{ms:.4f} ms (median of {REPS}, CUDA events); by kernel "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in passes.items())
+          + f" (mean, profiler); one read of X and G (amax) {read_ms:.4f} ms")
+    print(json.dumps({"b4": {"ms": ms, "passes_ms": passes,
+                             "read_ms": read_ms,
+                             "max_abs_err": bwd_err["p2m_bwd_dw"]}}))
+    return 0
 
 
 def time_train_step(torch, train, flush):
@@ -2292,6 +2387,8 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    if sys.argv[1:] == ["--b4"]:
+        return b4_only(torch, np, torch.device("cuda"))
 
     from repro_torch.configs.p2m_vww import (
         CONFIG,

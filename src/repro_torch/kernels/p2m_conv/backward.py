@@ -33,10 +33,21 @@ from repro_torch.kernels.p2m_conv.conv import ceil_to, premix_weights
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "p2m_bwd.cu"
 #: Shared memory a block may use on an H100 (227 KB), opted in above 48 KB.
 _SMEM_MAX = 232_448
-#: Blocks of B4's first pass aim at this many; rows per block are whole
-#: staging tiles (csrc kDwTileRows), so the split depends on M alone.
-_DW_BLOCKS = 1024
-_DW_TILE_ROWS = 32
+#: B4's first pass: blocks aim at ``_DW_BLOCKS`` (two an SM of an H100 by
+#: the kernel's register budget, but a constant: the bits do not depend on
+#: the card); rows per block are whole tiles of ``_DW_TILE_ROWS`` rows,
+#: halved (down to 8) while the ring's ``_DW_STAGES`` slots (csrc
+#: kDwStages) of a tile's X and G rows pass ``_DW_RING_BYTES``, so that two
+#: blocks fit an SM's shared memory.
+_DW_BLOCKS = 264
+_DW_TILE_ROWS = 64
+_DW_STAGES = 3
+_DW_RING_BYTES = 96 * 1024
+#: Keys of `dw_launch`'s report, in the C entry's order.
+_DW_GEOMETRY_KEYS = ("blocks_x", "blocks_y", "threads", "smem_bytes",
+                     "registers", "local_bytes", "blocks_per_sm",
+                     "pass2_blocks", "pass2_threads", "pass2_registers",
+                     "pass2_local_bytes", "pass2_blocks_per_sm")
 
 
 def _compute_dtype(*tensors) -> torch.dtype:
@@ -127,12 +138,16 @@ def _library():
     lib.p2m_bwd_dx.argtypes = [vp] * 4 + [i64, i32, i32, i32, vp]
     lib.p2m_bwd_dw.restype = i32
     lib.p2m_bwd_dw.argtypes = ([vp] * 5 + [i64, i32, i32, i32, i32, vp, i32,
-                                          i64, vp])
+                                          i64, i32, vp])
+    lib.p2m_bwd_dw_geometry.restype = i32
+    lib.p2m_bwd_dw_geometry.argtypes = [i64, i32, i32, i32, i32, i64, i32,
+                                        vp]
     lib.p2m_bwd_max_degree.restype = i32
     lib.p2m_bwd_max_degree.argtypes = []
-    for fn in (lib.p2m_bwd_dx_smem, lib.p2m_bwd_dw_smem):
-        fn.restype = i64
-        fn.argtypes = [i32, i32, i32]
+    lib.p2m_bwd_dx_smem.restype = i64
+    lib.p2m_bwd_dx_smem.argtypes = [i32, i32, i32]
+    lib.p2m_bwd_dw_smem.restype = i64
+    lib.p2m_bwd_dw_smem.argtypes = [i32, i32, i32, i32]
     return lib
 
 
@@ -197,11 +212,33 @@ def _launch_dx(g, wmix, x):
     return out
 
 
-def dw_split(m: int) -> tuple[int, int]:
-    """(blocks, rows per block) of B4's first pass for M rows: about
-    ``_DW_BLOCKS`` blocks of whole staging tiles, a function of M alone."""
-    rows = ceil_to(max(1, -(-m // _DW_BLOCKS)), _DW_TILE_ROWS)
-    return -(-m // rows), rows
+def dw_split(m: int, k: int, n: int) -> tuple[int, int, int]:
+    """(blocks, rows per block, tile rows) of B4's first pass for M rows
+    of K + N floats: about ``_DW_BLOCKS`` blocks of whole tiles, a
+    function of the shape alone.  The partials' scratch is blocks·dx·K·N
+    floats, at most ``_DW_BLOCKS``·dx·K·N."""
+    tile = _DW_TILE_ROWS
+    while tile > 8 and _DW_STAGES * tile * (k + n) * 4 > _DW_RING_BYTES:
+        tile //= 2
+    rows = ceil_to(max(1, -(-m // _DW_BLOCKS)), tile)
+    return -(-m // rows), rows, tile
+
+
+def dw_launch(m: int, k: int, n: int, dx: int) -> dict:
+    """The launch `p2m_bwd_dw` makes at these sizes, by `dw_split` and the
+    rule in ``csrc/p2m_bwd.cu``: pass one's blocks (x: the split over M;
+    y: e-groups × n-tiles), threads, dynamic shared memory, registers and
+    local bytes a thread, blocks an SM; pass two's blocks, threads,
+    registers, local bytes and blocks an SM.  Launches nothing; needs
+    the card."""
+    blocks, rows, tile = dw_split(m, k, n)
+    out = (ctypes.c_int * len(_DW_GEOMETRY_KEYS))()
+    err = _library().p2m_bwd_dw_geometry(m, k, n, dx, blocks, rows, tile,
+                                         out)
+    if err != 0:
+        raise RuntimeError(f"p2m_bwd_dw_geometry: cudaError {err}")
+    return {"rows_per_block": rows, "tile_rows": tile,
+            **dict(zip(_DW_GEOMETRY_KEYS, out))}
 
 
 def _launch_dw(g, w, x, coeffs):
@@ -212,8 +249,8 @@ def _launch_dw(g, w, x, coeffs):
     dw, dx = len(coeffs), len(coeffs[0])
     _check_degree(lib, "dw", dw)
     _check_degree(lib, "dx", dx)
-    _check_smem(lib.p2m_bwd_dw_smem(dx, k, n), "dW")
-    blocks, rows = dw_split(m)
+    blocks, rows, tile = dw_split(m, k, n)
+    _check_smem(lib.p2m_bwd_dw_smem(dx, k, n, tile), "dW")
     flat = (ctypes.c_float * (dw * dx))(
         *[float(coeffs[i][j]) for i in range(dw) for j in range(dx)])
     partial = torch.empty((blocks, dx, k, n), dtype=torch.float32,
@@ -223,7 +260,7 @@ def _launch_dw(g, w, x, coeffs):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.p2m_bwd_dw(x.data_ptr(), g.data_ptr(), w.data_ptr(),
                              partial.data_ptr(), out.data_ptr(), m, k, n, dx,
-                             dw, flat, blocks, rows, stream)
+                             dw, flat, blocks, rows, tile, stream)
     if err != 0:
         raise RuntimeError(f"p2m_bwd_dw CUDA launch failed: cudaError {err}")
     p2m_bwd_dw.launches += 1
@@ -253,10 +290,11 @@ def p2m_bwd_dw(g: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
     """dW (K, N) of the raw basis sum: g (M, N) masked cotangent, w (K, N)
     clipped weights, x (M, K) the im2col matrix.
 
-    A CUDA tensor goes to the CUDA kernels (a split-M pass and a fixed-order
-    sum, no atomics), which raise on a wrong dtype, a non-contiguous input,
-    a device mismatch, a degree outside 1..4 and an input that requires
-    grad under grad mode (`_build.refuse_grad`).  A CPU tensor goes to
+    A CUDA tensor goes to the CUDA kernels (a split-M pass on the tensor
+    cores in 3xTF32 and a fixed-order sum, no atomics), which raise on a
+    wrong dtype, a non-contiguous input, a device mismatch, a degree
+    outside 1..4 and an input that requires grad under grad mode
+    (`_build.refuse_grad`).  A CPU tensor goes to
     `p2m_bwd_dw_plain`.  ``p2m_bwd_dw.launches`` counts kernel launches
     (one per call, for the pair of passes).
     """

@@ -142,11 +142,19 @@ def test_wrappers_reject_bad_shapes():
 
 
 def test_dw_split_covers_every_row_once():
-    for m in (1, 31, 32, 1000, 401_408, 5_000_000):
-        blocks, rows = backward.dw_split(m)
-        assert rows % backward._DW_TILE_ROWS == 0
-        assert blocks * rows >= m > (blocks - 1) * rows
-        assert blocks <= backward._DW_BLOCKS
+    for m in (1, 31, 32, 1000, 100_003, 401_408, 5_000_000):
+        for k, n in ((75, 8), (1, 1), (100, 3), (147, 32), (675, 8)):
+            blocks, rows, tile = backward.dw_split(m, k, n)
+            assert tile in (8, 16, 32, 64) and rows % tile == 0
+            assert blocks * rows >= m > (blocks - 1) * rows
+            # the partials' scratch, blocks·dx·K·N floats, within its
+            # stated size
+            assert blocks <= backward._DW_BLOCKS
+            ring = backward._DW_STAGES * tile * (k + n) * 4
+            assert ring <= backward._DW_RING_BYTES or tile == 8
+    # the training shape: whole 64-row tiles, partials under 2 MB
+    blocks, rows, tile = backward.dw_split(401_408, 75, 8)
+    assert tile == 64 and blocks * 3 * 75 * 8 * 4 < 2 * 2 ** 20
 
 
 # ------------------------------------------------------ autograd Function

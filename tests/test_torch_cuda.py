@@ -194,8 +194,16 @@ BWD_CASES = [  # (M, K, N, dw, dx)
     (8, 1, 1, 3, 3),
     (1000, 75, 13, 2, 1),
     (4097, 27, 16, 3, 2),
-    (300, 75, 40, 4, 4),   # B4's pairs over two blocks along y
+    (300, 75, 40, 4, 4),   # B4's n-tiles over five blocks along y
     (70_001, 75, 8, 3, 3),  # many B4 blocks, M not a multiple of a tile
+    (20, 75, 8, 3, 3),     # M below one 64-row tile
+    # M not a multiple of a block's range: 261 blocks of 384 rows, 163 in
+    # the last
+    (100_003, 75, 8, 3, 3),
+    (2049, 75, 8, 2, 4),
+    (5000, 100, 3, 3, 3),  # 7 e-tiles: two e-groups along y
+    (3000, 147, 32, 3, 3),  # 32-row tiles; 2 e-groups x 4 n-tiles
+    (700, 675, 8, 1, 2),   # 8-row tiles (k = 15, C = 3)
 ]
 
 
@@ -231,6 +239,14 @@ def test_backward_kernels_match_plain(cuda, m, k, n, dw, dx):
     # B4 sums its partials in a fixed order: the same bits every run
     assert torch.equal(gw, backward.p2m_bwd_dw(g, w, x, coeffs))
     assert torch.equal(gx, backward.p2m_bwd_dx(g, w, x, coeffs))
+    # views 4 bytes off 16-byte alignment take B4's 4-byte copies: the
+    # same bits as the aligned inputs'
+    x_off = torch.empty(m * k + 1, device=cuda)[1:].view(m, k)
+    g_off = torch.empty(m * n + 1, device=cuda)[1:].view(m, n)
+    x_off.copy_(x)
+    g_off.copy_(g)
+    assert x_off.data_ptr() % 16 and g_off.data_ptr() % 16
+    assert torch.equal(gw, backward.p2m_bwd_dw(g_off, w, x_off, coeffs))
 
 
 def test_backward_wrappers_reject_what_the_kernels_do_not_take(cuda):
