@@ -106,8 +106,12 @@ no result:
    at depths 2 and 3 x block_h in turns with B1 at the serving, stream
    and training shapes, each with its launch: pixels a thread, threads,
    blocks an SM, registers and local bytes, none spilled, one read of
-   the images by `amax` and the library conv; B6 with its tuned
-   blocks; B4's two passes apart, by the profiler, and its launch:
+   the images by `amax` and the library conv; B1's launch (tiles, tile
+   pixels, blocks, threads, shared memory, blocks an SM, registers and
+   local bytes, which must be 0) beside one `amax` read of the images;
+   B6 with its tuned blocks and its launch (tiles, rows a thread, ring
+   slots, blocks, registers, local bytes 0) beside one `amax` read of x;
+   B4's two passes apart, by the profiler, and its launch:
    blocks, threads, shared memory, registers, blocks an SM and local
    bytes, which must be 0);
    the vision engine's time per launch and its parts; the stream
@@ -120,7 +124,9 @@ no result:
     last line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --b4`` runs phases 1, 4 and B4's times alone
-(`b4_only`), on this tree or, copied into its root, on an older one.
+(`b4_only`), ``python3 chip_smoke.py --b1b6`` phase 1, the builds of
+B1's and B6's sources and their checks and times alone (`b1b6_only`),
+each on this tree or, copied into its root, on an older one.
 """
 from __future__ import annotations
 
@@ -715,6 +721,145 @@ def b4_only(torch, np, dev) -> int:
     print(json.dumps({"b4": {"ms": ms, "passes_ms": passes,
                              "read_ms": read_ms,
                              "max_abs_err": bwd_err["p2m_bwd_dw"]}}))
+    return 0
+
+
+def b1b6_inputs(torch, np, dev):
+    """``--b1b6``'s inputs, random from a seed: 8 SyntheticVWW images at
+    560² (the serving batch; its first 4 the stream's), 32 random images
+    (the training batch), the stem's weights (75 x 8, the model's init
+    scale) premixed with the default pixel model, a shift, and x
+    (100,352 x 75) for B6.  Returns (stem shapes as `b2_shapes` gives
+    them, (x, w, shift, coeffs))."""
+    from repro_torch.configs.p2m_vww import CONFIG, SERVE_MAX_BATCH
+    from repro_torch.core.pixel_model import default_pixel_model
+    from repro_torch.data import SyntheticVWW
+    from repro_torch.kernels.p2m_conv import conv, ops
+
+    coeffs = ops._coeff_tuple(default_pixel_model())
+    size = CONFIG.image_size
+    rng = np.random.default_rng(SEED + 40)
+    imgs = torch.from_numpy(SyntheticVWW(
+        image_size=size, batch=SERVE_MAX_BATCH, seed=SEED).batch_at(0)[
+            "images"]).to(dev)
+    wt = torch.from_numpy((rng.uniform(-1, 1, (75, 8)) * (3.0 / 75) ** 0.5)
+                          .astype(np.float32))
+    wrows = conv.premix_rows(wt, coeffs, 5).to(dev)
+    shift = torch.from_numpy(rng.uniform(-0.2, 0.2, 8).astype(
+        np.float32)).to(dev)
+    x = torch.from_numpy(rng.random((100_352, 75), np.float32)).to(dev)
+    return (b2_shapes(torch, np, dev, (imgs, wrows, shift)),
+            (x, wt.to(dev), shift, coeffs))
+
+
+def b1b6_only(torch, np, dev) -> int:
+    """``chip_smoke.py --b1b6``: phase 1, the builds of ``p2m_conv.cu`` and
+    ``p2m_matmul.cu`` with their ptxas lines, then B1 and B6 alone.  At
+    phase 9's three stem shapes (serving and stream quant, training raw):
+    B1 against its plain twin, B2 == B1 bit for bit, then B1 and B2
+    (depths 2, 3 x block_h 1, 2, 4) in turns (`time_b2_shape`) and one
+    `amax` read of the images.  At (100,352, 75, 8) quant: B6 with the
+    tuner's blocks against its plain twin, beside `torch.matmul` of the
+    power concat and one `amax` read of x.  Every time by `cuda_ms`.  It
+    reads only what every tree of the port with B6 and the tuner has
+    (B1's and B6's launch reports where the tree has them), so a copy of
+    this script in the root of an older tree times that tree's B1 and
+    B6."""
+    from repro_torch.configs.p2m_vww import CONFIG
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.p2m_conv import conv, tune
+    from repro_torch.kernels.p2m_conv import kernel as mm_kernel
+
+    adc = CONFIG.p2m.adc
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[1] card: {smi_line()}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+        for job in [pool.submit(conv.build_p2m_conv),
+                    pool.submit(mm_kernel.build_p2m_matmul)]:
+            job.result()
+    for name in ("p2m_conv", "p2m_matmul"):
+        seconds, report = _build.BUILD_INFO[name]
+        print(f"[2] {name}.cu: nvcc {seconds:.2f} s")
+        for line in ptxas_summary(report):
+            print(f"    ptxas: {line}")
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
+                        device=dev)
+    shapes, (x, w, sh, coeffs) = b1b6_inputs(torch, np, dev)
+    result = {"b1": {}}
+    for name, ((imgs, wrows, shift), mode, _) in shapes.items():
+        qkw = dict(kernel=5, stride=5, mode=mode, v_lsb=adc.v_lsb,
+                   max_count=adc.max_count)
+        out1, raw1 = conv.p2m_conv_fused(imgs, wrows, shift, want_raw=True,
+                                         **qkw)
+        _, ref_raw = conv.p2m_conv_premixed_plain(imgs, wrows, shift,
+                                                  want_raw=True, **qkw)
+        err = float((raw1 - ref_raw).abs().max())
+        check(err <= RAW_TOL, f"B1 at {name}: raw differs by {err}")
+        for depth in (2, 3):
+            out2, raw2 = conv.p2m_conv_fused(imgs, wrows, shift, want_raw=True,
+                                             pipeline_depth=depth, **qkw)
+            check(torch.equal(out2, out1) and torch.equal(raw2, raw1),
+                  f"B2 at {name}, depth {depth}, differs from B1")
+        times, b1 = time_b2_shape(torch, flush, (imgs, wrows, shift), qkw,
+                                  (1, 2, 4))
+        read_ms = cuda_ms(torch, imgs.amax, flush)
+        best = min(times, key=times.get)
+        print(f"[9] B1 at {name} {mode}: {b1[0]:.4f} and {b1[1]:.4f} ms (in "
+              f"turns with B2); raw vs plain {err:.1e}; B2 == B1 bitwise; "
+              f"B2 (block_h, depth): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+              + f"; fastest B2 {best} {times[best]:.4f} ms; one read of the "
+              f"images (amax) {read_ms:.4f} ms")
+        result["b1"][name] = {"b1_ms": b1, "b2_ms": {
+            f"{k[0]},{k[1]}": v for k, v in times.items()},
+            "read_ms": read_ms, "raw_err": err}
+        if hasattr(conv, "b1_launch"):
+            dx = wrows.shape[1] // (5 * imgs.shape[3])
+            geo = conv.b1_launch(tuple(imgs.shape), wrows.shape[2], dx,
+                                 kernel=5, stride=5)
+            print(f"[9] B1 launch at {name}: {geo}")
+            result["b1"][name]["launch"] = geo
+    m, kk = x.shape
+    n = w.shape[1]
+    blocks = tune.get_matmul_blocks(m, kk, n, coeffs, "quant", device=dev)
+    rec = tune.decision_records()[-1]
+    print(f"[3f] B6 tuner at ({m}, {kk}, {n}) quant, (block_m, block_n, "
+          f"block_k): ms: " + ", ".join(
+              f"{tuple(c)} {t * 1e3:.4f}" for c, t in zip(
+                  rec["candidates"], rec["times_s"]) if t is not None))
+    bm, bn, bk = blocks
+    kw = dict(coeffs=coeffs, mode="quant", v_lsb=adc.v_lsb,
+              max_count=adc.max_count)
+    _, raw = mm_kernel.p2m_matmul_fused(x, w, sh, want_raw=True, block_m=bm,
+                                        block_n=bn, block_k=bk, **kw)
+    ref_raw = mm_kernel.p2m_matmul_raw_plain(x, w, coeffs)
+    err = float((raw - ref_raw).abs().max())
+    check(err <= RAW_TOL, f"B6 raw differs by {err}")
+    dx = len(coeffs[0])
+    xcat = torch.cat([x ** (j + 1) for j in range(dx)], dim=1)
+    wcat = conv.premix_weights(w, coeffs).reshape(dx * kk, n)
+    b6 = []
+    library = []
+    for _ in range(2):  # in turns: B6, library, B6, library
+        b6.append(cuda_ms(torch, lambda: mm_kernel.p2m_matmul_fused(
+            x, w, sh, block_m=bm, block_n=bn, block_k=bk, **kw), flush))
+        library.append(cuda_ms(torch, lambda: torch.matmul(xcat, wcat),
+                               flush))
+    read_ms = cuda_ms(torch, x.amax, flush)
+    print(f"[9] B6 at ({m}, {kk}, {n}) quant, tuner's blocks {blocks}: "
+          f"{b6[0]:.4f} and {b6[1]:.4f} ms; raw vs plain {err:.1e}; "
+          f"torch.matmul of the power concat {library[0]:.4f} and "
+          f"{library[1]:.4f} ms; one read of x (amax) {read_ms:.4f} ms")
+    result["b6"] = {"blocks": list(blocks), "ms": b6, "library_ms": library,
+                    "read_ms": read_ms, "raw_err": err}
+    if hasattr(mm_kernel, "matmul_launch"):
+        geo = mm_kernel.matmul_launch(m, kk, n, dx, block_m=bm, block_n=bn,
+                                      block_k=bk)
+        print(f"[9] B6 launch: {geo}")
+        result["b6"]["launch"] = geo
+    print(json.dumps({"b1b6": result}))
     return 0
 
 
@@ -2361,6 +2506,10 @@ def time_matmul(torch, np, dev, flush, adc):
     check(lib_err <= 1e-4, f"B6 library yardstick differs by {lib_err}")
     library_ms = cuda_ms(torch, lambda: torch.matmul(xcat, wcat), flush)
     kernel.p2m_matmul_fused.launches = counted
+    read_ms = cuda_ms(torch, x.amax, flush)
+    geo = kernel.matmul_launch(m, kk, n, dx, block_m=bm, block_n=bn,
+                               block_k=bk)
+    check(geo["local_bytes"] == 0, f"B6 uses local memory a thread: {geo}")
     nbytes = 4 * (x.numel() + w.numel() + sh.numel() + m * n)
     flops = 2 * m * kk * n * dx
     b_ms, b_by = bound(nbytes, flops)
@@ -2369,10 +2518,17 @@ def time_matmul(torch, np, dev, flush, adc):
           f"{len(rec['candidates'])} candidates): kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, library matmul of the power concat "
           f"{library_ms:.4f} ms (raw err {lib_err:.1e}); bound {b_ms:.4f} ms "
-          f"by {b_by} ({nbytes} bytes, {flops} FLOP)")
+          f"by {b_by} ({nbytes} bytes, {flops} FLOP); one read of x (amax) "
+          f"{read_ms:.4f} ms")
+    print(f"[9] p2m_matmul_fused launch: {geo['tiles']} tiles of "
+          f"{geo['block_m']} rows over {geo['blocks_x']} x {geo['blocks_y']} "
+          f"blocks of {geo['threads']} threads ({geo['rows_per_thread']} rows "
+          f"a thread), {geo['slots']} slots, {geo['smem_bytes']} B dynamic "
+          f"shared memory, {geo['blocks_per_sm']} blocks an SM, "
+          f"{geo['registers']} registers, {geo['local_bytes']} B local")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library_ms,
-            "blocks": list(blocks)}
+            "blocks": list(blocks), "read_ms": read_ms, "launch": geo}
 
 
 def main() -> int:
@@ -2389,6 +2545,8 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     if sys.argv[1:] == ["--b4"]:
         return b4_only(torch, np, torch.device("cuda"))
+    if sys.argv[1:] == ["--b1b6"]:
+        return b1b6_only(torch, np, torch.device("cuda"))
 
     from repro_torch.configs.p2m_vww import (
         CONFIG,
@@ -2634,6 +2792,20 @@ def main() -> int:
           f"plain {plain_ms:.4f} ms, library conv2d {library_ms:.4f} ms "
           f"(raw err {lib_err:.1e}); bound {bound_ms:.4f} ms by {bound_by} "
           f"({bytes_moved} bytes, {flops} FLOP)")
+    b1_geo = conv.b1_launch(tuple(paper_imgs.shape), n,
+                            wrows.shape[1] // (k * paper_imgs.shape[3]),
+                            kernel=k, stride=s)
+    check(b1_geo["local_bytes"] == 0,
+          f"B1 uses local memory a thread: {b1_geo}")
+    b1_read_ms = cuda_ms(torch, paper_imgs.amax, flush)
+    print(f"[9] p2m_conv_fused (B1) launch: {b1_geo['tiles']} tiles of "
+          f"{b1_geo['tile_px']} pixels over {b1_geo['blocks_x']} x "
+          f"{b1_geo['blocks_y']} blocks of {b1_geo['threads']} threads "
+          f"({b1_geo['pixels_per_thread']} pixels a thread), "
+          f"{b1_geo['smem_bytes']} B dynamic shared memory, "
+          f"{b1_geo['blocks_per_sm']} blocks an SM, {b1_geo['registers']} "
+          f"registers, {b1_geo['local_bytes']} B local; one read of the "
+          f"images (amax) {b1_read_ms:.4f} ms")
     # Engine time per launch, warm: five full microbatches.
     before_l, before_us = engine.stats["launches"], engine.stats["wall_us"]
     warm = [VisionRequest(uid=100 + i, image=images[i % n_req])
@@ -2675,7 +2847,8 @@ def main() -> int:
           f"{host_ms + stem_ms + backbone_ms:.3f} of {engine_ms:.3f} ms")
 
     b1_row = {"plain_ms": plain_ms, "bound_ms": bound_ms,
-              "bound_by": bound_by, "library_ms": library_ms}
+              "bound_by": bound_by, "library_ms": library_ms,
+              "read_ms": b1_read_ms, "launch": b1_geo}
     pipe_row = time_pipelined(torch, np, dev, flush, serve_in, adc, tuned,
                               b1_row)
     mm_row = time_matmul(torch, np, dev, flush, adc)
@@ -2711,6 +2884,8 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+        "read_ms": b1_read_ms,
+        "launch": b1_geo,
     }, {
         "name": "p2m_conv_fused_pipelined",
         "route": "cuda",

@@ -13,10 +13,13 @@ optional integer-exact quantization).  No patch tensor is formed.
 
 `p2m_conv_fused` is the wrapper of the hand-written CUDA kernels
 (``csrc/p2m_conv.cu``) that replace the TPU kernel `p2m_conv_pallas`:
-``pipeline_depth=0`` runs B1 (its grid path), ``pipeline_depth ≥ 2`` runs
-B2, the same function through a ``cp.async`` ring over the kernel rows
-with several pixels a thread (its ``pipeline_depth ≥ 2`` path), bit for
-bit equal to B1; `pipelined_launch` reports B2's launch geometry.  The tuner
+``pipeline_depth=0`` runs B1 (its grid path: persistent blocks over
+tiles of one output row, each tile's band copied while the one before
+computes; `b1_tiling` is its one launch rule, `b1_launch` reports it),
+``pipeline_depth ≥ 2`` runs B2, the same function through a ``cp.async``
+ring over the kernel rows with several pixels a thread (its
+``pipeline_depth ≥ 2`` path), bit for bit equal to B1; `pipelined_launch`
+reports B2's launch geometry.  The tuner
 (`tune.py`) picks the depth and the blocks.  For a CUDA tensor the
 wrapper launches a kernel or raises; for a tensor on the CPU it runs
 `p2m_conv_premixed_plain`, the kernels' plain PyTorch twin.
@@ -33,11 +36,34 @@ from repro_torch.kernels._build import load_library, refuse_grad
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "p2m_conv.cu"
 _MODES = {"raw": 0, "relu": 1, "quant": 2}
-#: Shared memory a block may use for its N range of W̃ without opting in.
+#: Shared memory B1 may give its N range of W̃ (all k rows).
 _SMEM_BYTES = 48 * 1024
 _CHUNK = 8  # outputs a thread keeps in registers at a time (csrc kChunk)
 #: Shared memory a block may use on an H100 (227 KB), opted in above 48 KB.
 SMEM_MAX = 232_448
+#: B1: pixels a thread, most row groups a block, most threads a row
+#: group, band slots a block (csrc kB1Pixels, kB1Groups, kB1GroupThreads,
+#: kB1Slots).
+B1_PIXELS = 2
+B1_GROUPS = 5
+B1_GROUP_THREADS = 64
+B1_SLOTS = 2
+#: Shared memory of a B1 block, its two band slots and its N tile of W̃,
+#: at most: the tuner's budget (`tune.SMEM_BUDGET_BYTES`), two blocks an SM.
+B1_SMEM_BYTES = 100 * 1024
+#: The card as B1's and B6's one-wave grids count it (H100 SXM): SMs, an
+#: SM's shared memory, what a block reserves of it and the 16 bytes of
+#: mbarriers a B1 or B6 block holds, an SM's threads, registers and
+#: blocks.
+H100_SMS = 132
+_SM_SMEM = 233_472
+_BLOCK_SMEM_EXTRA = 1024 + 16
+_SM_THREADS = 2048
+_SM_REGISTERS = 65_536
+_SM_MAX_BLOCKS = 32
+#: Registers a B1 thread at most: its launch bounds, two blocks of
+#: B1_GROUPS · B1_GROUP_THREADS threads an SM.
+B1_REGISTERS = _SM_REGISTERS // (2 * B1_GROUPS * B1_GROUP_THREADS)
 #: B2: most pixels a block takes, and most outputs a block computes
 #: (csrc kPipeThreads, kMaxTileChunks register chunks).
 PIPE_THREADS = 512
@@ -199,7 +225,7 @@ def _library():
     lib = load_library("p2m_conv", _SOURCE)
     lib.p2m_conv_forward.restype = ctypes.c_int
     lib.p2m_conv_forward.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
         + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     lib.p2m_conv_pipelined_forward.restype = ctypes.c_int
     lib.p2m_conv_pipelined_forward.argtypes = (
@@ -207,10 +233,13 @@ def _library():
         + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     lib.p2m_conv_gated_forward.restype = ctypes.c_int
     lib.p2m_conv_gated_forward.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14
         + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     lib.p2m_conv_pipelined_geometry.restype = ctypes.c_int
     lib.p2m_conv_pipelined_geometry.argtypes = (
+        [ctypes.c_int] * 12 + [ctypes.POINTER(ctypes.c_int)])
+    lib.p2m_conv_b1_geometry.restype = ctypes.c_int
+    lib.p2m_conv_b1_geometry.argtypes = (
         [ctypes.c_int] * 12 + [ctypes.POINTER(ctypes.c_int)])
     lib.p2m_conv_max_dx.restype = ctypes.c_int
     lib.p2m_conv_max_dx.argtypes = []
@@ -224,8 +253,8 @@ def build_p2m_conv() -> None:
 
 def _n_tile(n: int, rows: int, block_n: int | None = None) -> int:
     """B1's outputs per block: all of N (or ``block_n`` of them, in whole
-    register chunks) when their W̃ fits the shared-memory budget, else the
-    largest whole number of register chunks that does."""
+    register chunks) when their W̃ fits its 48 KB, else the largest whole
+    number of register chunks that does."""
     want = n if block_n is None else min(n, ceil_to(block_n, _CHUNK))
     if rows * ceil_to(want, _CHUNK) * 4 <= _SMEM_BYTES:
         return want
@@ -234,6 +263,109 @@ def _n_tile(n: int, rows: int, block_n: int | None = None) -> int:
         raise ValueError(f"W̃ of {rows} rows does not fit shared memory "
                          f"even for {_CHUNK} outputs")
     return tile
+
+
+def blocks_per_sm(smem: int, threads: int, registers: int) -> int:
+    """Blocks of ``threads`` threads of at most ``registers`` registers
+    (the kernel's launch bounds) and ``smem`` bytes of dynamic shared
+    memory that one SM holds at once: the least of its shared memory,
+    threads, registers and block slots."""
+    return min(_SM_SMEM // (smem + _BLOCK_SMEM_EXTRA), _SM_THREADS // threads,
+               _SM_REGISTERS // (registers * threads), _SM_MAX_BLOCKS)
+
+
+def one_wave_grid(tiles: int, per_sm: int, blocks_y: int) -> int:
+    """Persistent blocks in x for ``tiles`` tiles: as many as one wave of
+    the card holds at ``per_sm`` blocks an SM beside ``blocks_y`` blocks
+    in y, at most one a tile."""
+    return max(1, min(tiles, H100_SMS * per_sm // blocks_y))
+
+
+def b1_smem_bytes(tile_px: int, c: int, k: int, s: int, dx: int,
+                  n_tile: int) -> int:
+    """Shared memory of one B1 block (csrc ``b1_launch``): two band slots,
+    each k rows of the windows of ``tile_px`` pixels ((tile_px − 1)·s + k
+    pixels of C floats, padded to 16 bytes), the N tile of W̃ for all k
+    rows and, where they do not go into the band rows (more than one
+    register chunk, or a band row narrower than a row's parts), the parts:
+    k rows of ``tile_px`` × 8 floats."""
+    row = ceil_to(((tile_px - 1) * s + k) * c, 4)
+    tile = ceil_to(n_tile, _CHUNK)
+    in_band = tile == _CHUNK and row >= tile_px * _CHUNK
+    return 4 * (B1_SLOTS * k * row + k * dx * k * c * tile
+                + (0 if in_band else k * tile_px * _CHUNK))
+
+
+def b1_tile(wo: int, c: int, k: int, s: int, dx: int,
+            n_tile: int) -> tuple[int, int]:
+    """B1's ``(tile pixels, tiles a row)``: an output row of ``wo`` pixels
+    cut into the fewest equal tiles whose block fits `B1_SMEM_BYTES`, of
+    at most `B1_GROUP_THREADS` · `B1_PIXELS` pixels.  At s = k and W =
+    Wo·s (Wo ≤ 128) a whole row is a tile, its band one contiguous span:
+    one bulk copy.  A tile may hold fewer pixels than a warp: one pixel's
+    two bands and parts (at most 8·k²·C + 32·k bytes, about 13 KB beside
+    a W̃ within its 48 KB) always fit, so every shape whose W̃ fits
+    runs."""
+    pieces = -(-wo // (B1_GROUP_THREADS * B1_PIXELS))
+    tile = -(-wo // pieces)
+    while tile > 1 and b1_smem_bytes(tile, c, k, s, dx,
+                                     n_tile) > B1_SMEM_BYTES:
+        pieces += 1
+        tile = -(-wo // pieces)
+    return tile, -(-wo // tile)
+
+
+def b1_tiling(shape: tuple, n: int, dx: int, *, kernel: int, stride: int,
+              block_n: int | None = None) -> dict:
+    """B1's one launch rule, from the shape alone: the N tile
+    (`_n_tile`), the tile (`b1_tile`), tiles in all (B·Ho·tiles a row;
+    none straddles two images), threads (a row group for each kernel row,
+    at most `B1_GROUPS`, of a thread for each `B1_PIXELS` pixels of a
+    tile, in whole warps), the N tiles in y, and the persistent blocks in
+    x: one wave of the card (`one_wave_grid`), each block a
+    contiguous run of tiles, the first ``tiles % blocks_x`` one more, so
+    blocks differ by at most one tile.  At the serving shape (8 × 560² ×
+    3, k = s = 5, N = 8): 896 tiles of a whole 112-pixel row, 5 groups of
+    64 threads, 74,400 bytes, two blocks an SM (its launch bounds), 264
+    blocks."""
+    b, h, w_dim, c = shape
+    k, s = kernel, stride
+    ho, wo = conv_out_spatial(h, k, s), conv_out_spatial(w_dim, k, s)
+    n_tile = _n_tile(n, k * dx * k * c, block_n)
+    tile_px, pieces = b1_tile(wo, c, k, s, dx, n_tile)
+    threads = min(k, B1_GROUPS) * ceil_to(-(-tile_px // B1_PIXELS), 32)
+    smem = b1_smem_bytes(tile_px, c, k, s, dx, n_tile)
+    tiles = b * ho * pieces
+    blocks_y = -(-n // n_tile)
+    per_sm = blocks_per_sm(smem, threads, B1_REGISTERS)
+    return {"n_tile": n_tile, "tile_px": tile_px, "pieces": pieces,
+            "tiles": tiles, "threads": threads, "smem_bytes": smem,
+            "blocks_per_sm": per_sm,
+            "blocks_x": one_wave_grid(tiles, per_sm, blocks_y),
+            "blocks_y": blocks_y}
+
+
+def b1_launch(shape: tuple, n: int, dx: int, *, kernel: int, stride: int,
+              block_n: int | None = None, gated: bool = False) -> dict:
+    """The launch `p2m_conv_fused` (or, ``gated``, B1's gated body of
+    `gated.p2m_conv_fused_gated`) makes for B1 on images of ``shape``:
+    `b1_tiling`'s tile, pixels a tile and tiles, and the C entry's report
+    of the launch: blocks in x and y, threads, dynamic shared memory,
+    pixels a thread, registers and local memory (spills) a thread, blocks
+    an SM (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`).  Launches
+    nothing; needs the card."""
+    b, h, w_dim, c = shape
+    t = b1_tiling(shape, n, dx, kernel=kernel, stride=stride,
+                  block_n=block_n)
+    out = (ctypes.c_int * len(_GEOMETRY_KEYS))()
+    err = _library().p2m_conv_b1_geometry(
+        b, h, w_dim, c, kernel, stride, n, dx, t["n_tile"], t["tile_px"],
+        t["blocks_x"], int(gated), out)
+    if err != 0:
+        raise RuntimeError(f"p2m_conv_b1_geometry: cudaError {err}")
+    return {"n_tile": t["n_tile"], "tile_px": t["tile_px"],
+            "pieces": t["pieces"], "tiles": t["tiles"],
+            **dict(zip(_GEOMETRY_KEYS, out))}
 
 
 def check_pipeline_depth(depth: int) -> None:
@@ -389,7 +521,9 @@ def _launch_cuda(images, wrows, shift, *, kernel, stride, mode, v_lsb,
         bh, n_tile, nbuf = _pipelined_blocks(b, ho, wo, n, c, k, s, dx,
                                              block_h, block_n, pipeline_depth)
     else:
-        n_tile = _n_tile(n, k * dx * k * c, block_n)
+        tiling = b1_tiling((b, h, w_dim, c), n, dx, kernel=k, stride=s,
+                           block_n=block_n)
+        n_tile = tiling["n_tile"]
     out = torch.empty((b, ho, wo, n), dtype=torch.float32,
                       device=images.device)
     raw = torch.empty_like(out) if want_raw else None
@@ -403,8 +537,9 @@ def _launch_cuda(images, wrows, shift, *, kernel, stride, mode, v_lsb,
                 _MODES[mode], v_lsb, max_count, max_count * v_lsb, stream)
         else:
             err = lib.p2m_conv_forward(
-                *ptrs, b, h, w_dim, c, k, s, n, dx, n_tile, _MODES[mode],
-                v_lsb, max_count, max_count * v_lsb, stream)
+                *ptrs, b, h, w_dim, c, k, s, n, dx, n_tile,
+                tiling["tile_px"], tiling["blocks_x"], _MODES[mode], v_lsb,
+                max_count, max_count * v_lsb, stream)
     if err != 0:
         raise RuntimeError(f"p2m_conv CUDA launch failed ("
                            f"{'B2' if pipelined else 'B1'}): cudaError {err}")

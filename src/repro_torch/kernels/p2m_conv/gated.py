@@ -28,8 +28,8 @@ from repro_torch.kernels._build import refuse_grad
 from repro_torch.kernels.p2m_conv.conv import (
     _MODES,
     _check_launch,
-    _n_tile,
     _pipelined_blocks,
+    b1_tiling,
     check_pipeline_depth,
     conv_out_spatial,
     default_block_h,
@@ -111,12 +111,16 @@ def _launch_gated(images, wrows, shift, cached, rerun, *, kernel, stride,
     if rerun.dtype not in (torch.bool, torch.int32):
         raise TypeError(f"rerun must be bool or int32, got {rerun.dtype}")
     ring = pipeline_depth >= 2
+    tile_px = blocks_x = 0  # B1's tiling, not read by the ring
     if ring:
         bh, n_tile, nbuf = gated_blocks(b, ho, wo, n, c, kernel, stride, dx,
                                         block_h, block_n, pipeline_depth)
-    else:  # B1's body tiles pixels itself
+    else:  # B1's body, with B1's tiling
         bh, nbuf = 0, 0
-        n_tile = _n_tile(n, kernel * dx * kernel * c, block_n)
+        tiling = b1_tiling((b, h, w_dim, c), n, dx, kernel=kernel,
+                           stride=stride, block_n=block_n)
+        n_tile, tile_px, blocks_x = (tiling[key] for key in (
+            "n_tile", "tile_px", "blocks_x"))
     mask = rerun.to(torch.int32).contiguous()  # on the device: no sync
     out = torch.empty_like(cached)
     with torch.cuda.device(images.device):
@@ -125,7 +129,8 @@ def _launch_gated(images, wrows, shift, cached, rerun, *, kernel, stride,
             images.data_ptr(), wrows.data_ptr(), shift.data_ptr(),
             cached.data_ptr(), mask.data_ptr(), out.data_ptr(),
             b, h, w_dim, c, kernel, stride, n, dx, n_tile, bh, nbuf,
-            _MODES[mode], v_lsb, max_count, max_count * v_lsb, stream)
+            tile_px, blocks_x, _MODES[mode], v_lsb, max_count,
+            max_count * v_lsb, stream)
     if err != 0:
         raise RuntimeError(f"p2m_conv_gated CUDA launch failed "
                            f"({'ring' if ring else 'B1 body'}): "

@@ -7,7 +7,8 @@ product (`kernel.p2m_matmul_fused`) by enumerating the candidates under a
 shared-memory budget and timing each on synthetic data of the call's
 shape.  The port's meanings:
 
-* conv, ``pipeline_depth`` 0: B1, one thread a pixel in blocks of 256;
+* conv, ``pipeline_depth`` 0: B1, persistent blocks over tiles of one
+  output row, two pixels a thread, its tiling its own (`conv.b1_tiling`);
   it ignores ``block_h``, and ``block_n`` is the outputs a block stages
   W̃ for (`conv._n_tile`).  ``pipeline_depth`` ≥ 2: B2, a ring of
   ``min(depth, k)`` shared-memory slots over the kernel rows; ``block_h``
@@ -16,8 +17,9 @@ shape.  The port's meanings:
   a block, all live in a thread's registers.
   Candidates are the blocks the kernels run: a request B1 would ignore, or
   a depth that clamps to k, is not timed twice.
-* product: ``block_m`` rows of x a block (one thread a row), ``block_n``
-  ≤ 32 outputs a block, ``block_k`` rows of K staged a time.
+* product: ``block_m`` rows of x a tile (a persistent block walks
+  several, `kernel.matmul_tiling`), ``block_n`` ≤ 32 outputs a block,
+  ``block_k`` rows of K copied a time (all of K: a tile is one span).
 
 Budget (`SMEM_BUDGET_BYTES`): an H100 block may opt in to 227 KB of
 shared memory of its SM's 228 KB.  Half of that (100 KB, with the 1 KB a
@@ -117,11 +119,13 @@ def _coeff_sig(coeffs) -> tuple:
 def conv_smem_bytes(cand: tuple, *, wo: int, c: int, kernel: int,
                     stride: int, dx: int) -> int:
     """Shared memory of one block of the conv candidate ``(block_h,
-    block_n, depth)``: B1 stages W̃ of all k rows for its N tile; B2 its
+    block_n, depth)``: B1 its two band slots and W̃ of all k rows for its
+    N tile (`conv.b1_smem_bytes` at its tile, `conv.b1_tile`); B2 its
     ring (`conv.pipelined_smem_bytes`)."""
     bh, bn, depth = cand
     if depth == 0:
-        return 4 * kernel * dx * kernel * c * conv.ceil_to(bn, conv._CHUNK)
+        tile_px, _ = conv.b1_tile(wo, c, kernel, stride, dx, bn)
+        return conv.b1_smem_bytes(tile_px, c, kernel, stride, dx, bn)
     return conv.pipelined_smem_bytes(wo, c, kernel, stride, dx, bh, bn,
                                      depth)
 
@@ -133,9 +137,10 @@ def conv_candidates(b: int, ho: int, wo: int, n: int, kc: int, *,
                     ) -> list[tuple[int | None, int, int]]:
     """Conv candidates ``(block_h, block_n, depth)`` as the kernels run
     them: B1's ``(None, its N tile, 0)`` when its W̃ of all k rows fits
-    its 48 KB for one register chunk; B2's ``(block_h, N tile, min(depth,
-    k))`` with ``block_h · Wo`` ≤ `conv.PIPE_THREADS` and its ring within
-    ``budget``.  ``kc`` = k·C."""
+    its 48 KB for one register chunk (its tiles' bands then fit beside
+    it within `conv.B1_SMEM_BYTES`, `conv.b1_tile`); B2's ``(block_h, N
+    tile, min(depth, k))`` with ``block_h · Wo`` ≤ `conv.PIPE_THREADS`
+    and its ring within ``budget``.  ``kc`` = k·C."""
     c = kc // kernel
     out, seen = [], set()
     for depth in depths:
@@ -157,7 +162,7 @@ def conv_candidates(b: int, ho: int, wo: int, n: int, kc: int, *,
                 if full in seen:
                     continue
                 seen.add(full)
-                # B1 keeps its W̃ within 48 KB itself (`conv._n_tile`)
+                # B1 keeps itself within `conv.B1_SMEM_BYTES`
                 if depth == 0 or conv_smem_bytes(
                         full, wo=wo, c=c, kernel=kernel, stride=stride,
                         dx=dx) <= budget:
@@ -165,9 +170,11 @@ def conv_candidates(b: int, ho: int, wo: int, n: int, kc: int, *,
     return out
 
 
-def matmul_smem_bytes(cand: tuple, *, dx: int) -> int:
+def matmul_smem_bytes(cand: tuple, *, dx: int, k: int) -> int:
+    """Shared memory of one block of the product candidate ``(block_m,
+    block_n, block_k)`` at K = ``k`` (`kernel.matmul_smem_bytes`)."""
     bm, bn, bk = cand
-    return kernel.matmul_smem_bytes(bm, bk, dx, bn)
+    return kernel.matmul_smem_bytes(bm, bk, dx, bn, k)
 
 
 def matmul_candidates(m: int, k: int, n: int, *, dx: int = 3,
@@ -185,7 +192,7 @@ def matmul_candidates(m: int, k: int, n: int, *, dx: int = 3,
                 if cand in seen:
                     continue
                 seen.add(cand)
-                if matmul_smem_bytes(cand, dx=dx) <= budget:
+                if matmul_smem_bytes(cand, dx=dx, k=k) <= budget:
                     out.append(cand)
     return out
 
@@ -393,7 +400,8 @@ def get_matmul_blocks(m: int, k: int, n: int, coeffs, mode: str, *, device,
     counted = kernel.p2m_matmul_fused.launches
     try:
         return autotune(key, setup, device, iters=iters,
-                        smem=lambda cd: matmul_smem_bytes(cd, dx=dx))["best"]
+                        smem=lambda cd: matmul_smem_bytes(
+                            cd, dx=dx, k=k))["best"]
     finally:
         kernel.p2m_matmul_fused.launches = counted
 

@@ -429,6 +429,39 @@ def test_gated_launch_spills_nothing(cuda):
                               pipeline_depth=2)["block_h"] == 2
 
 
+@pytest.mark.parametrize("b,h,w,c,k,s,n,offset", [
+    (2, 10, 2605, 3, 5, 5, 8, 0),  # Wo = 521: 4 tiles a row, the last partial
+    (4, 2700, 60, 3, 5, 5, 8, 0),  # more tiles than one wave's blocks
+    (4, 60, 60, 3, 5, 5, 8, 1),  # images one float past 16 bytes
+    (4, 40, 40, 3, 5, 5, 32, 0),  # N = 32, and 4 N tiles of 8
+])
+@pytest.mark.parametrize("mode", ["raw", "quant"])
+def test_gated_b1_body_on_b1_tiles_is_b1_then_where(cuda, b, h, w, c, k, s,
+                                                     n, offset, mode):
+    """B1's gated body (depth 0) on B1's tiles: its partial tiles, a
+    grid of uneven runs, unaligned images and N tiles give B1 + where bit
+    for bit in every mask; the ring takes none of the first two."""
+    x, wrows, shift = _data(b, h, w, c, k, n, cuda)
+    if offset:
+        buf = torch.empty(x.numel() + offset, device=cuda)
+        buf[offset:].copy_(x.reshape(-1))
+        x = buf[offset:].view(x.shape)
+    ho, wo = (h - k) // s + 1, (w - k) // s + 1
+    cached = torch.rand((b, ho, wo, n), generator=torch.Generator()
+                        .manual_seed(1)).to(cuda)
+    kw = dict(kernel=k, stride=s, mode=mode)
+    b1 = conv.p2m_conv_fused(x, wrows, shift, **kw)
+    for block_n in ((None, 8) if n > 8 else (None,)):
+        for name, mask in GATED_MASKS.items():
+            rerun = torch.tensor((mask * b)[:b], dtype=torch.bool,
+                                 device=cuda)
+            got = gated.p2m_conv_fused_gated(x, wrows, shift, cached, rerun,
+                                             block_n=block_n, **kw)
+            torch.cuda.synchronize()
+            want = torch.where(rerun[:, None, None, None], b1, cached)
+            assert torch.equal(got, want), (block_n, name)
+
+
 def test_gated_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     x, wrows, shift = _data(2, 10, 10, 3, 5, 8, cuda)
     cached = torch.zeros((2, 2, 2, 8), device=cuda)
@@ -712,6 +745,18 @@ PIPE_GEOMETRIES = [  # (B, H, W, C, k, s, N, dw, dx, images' offset)
     (3, 45, 50, 3, 5, 5, 8, 3, 3, 0),  # B·Ho = 27 at block_h 2 and 25
     # images one float past a 16-byte address: 4-byte copies of the bands
     (2, 60, 60, 3, 5, 5, 8, 3, 3, 1),
+    # B1's tiling: the serving shape (896 whole-row tiles, one bulk copy
+    # each, over 264 blocks: uneven) and unaligned; more tiles than one
+    # wave's blocks (2,160 rows of Wo = 12); k = 15 (tiles of 14 pixels,
+    # the last of the row partial); s < k and s = k with W > (Wo-1)·s + k
+    # (16-byte cp.async, not one span); N = 32 (and 4 N tiles of 8)
+    (8, 560, 560, 3, 5, 5, 8, 3, 3, 0),
+    (8, 560, 560, 3, 5, 5, 8, 3, 3, 1),
+    (4, 2700, 60, 3, 5, 5, 8, 3, 3, 0),
+    (1, 15, 600, 3, 15, 15, 8, 3, 1, 0),
+    (2, 20, 22, 4, 3, 2, 8, 3, 3, 0),
+    (1, 40, 564, 3, 5, 5, 8, 3, 3, 0),
+    (2, 40, 40, 3, 5, 5, 32, 3, 3, 0),
 ]
 
 
@@ -740,13 +785,19 @@ def _pipe_case(b, h, w, c, k, n, dw, dx, device, seed=0):
 def test_pipelined_kernel_is_b1_bit_for_bit(cuda, b, h, w, c, k, s, n, dw,
                                             dx, offset, mode):
     x, wrows, shift = _pipe_case(b, h, w, c, k, n, dw, dx, cuda)
+    kw = dict(kernel=k, stride=s, mode=mode, want_raw=True)
     if offset:  # the same images at a 4-byte, not 16-byte, address
+        aligned = conv.p2m_conv_fused(x, wrows, shift, **kw)
         buf = torch.empty(x.numel() + offset, device=cuda)
         buf[offset:].copy_(x.reshape(-1))
         x = buf[offset:].view(x.shape)
         assert x.data_ptr() % 16
-    kw = dict(kernel=k, stride=s, mode=mode, want_raw=True)
     out1, raw1 = conv.p2m_conv_fused(x, wrows, shift, **kw)
+    if offset:  # B1's 4-byte copies give its bulk or 16-byte copies' bits
+        assert torch.equal(out1, aligned[0]) and torch.equal(raw1, aligned[1])
+    if n > 8:  # B1 over N tiles of 8
+        out8, raw8 = conv.p2m_conv_fused(x, wrows, shift, block_n=8, **kw)
+        assert torch.equal(out8, out1) and torch.equal(raw8, raw1)
     ho = (h - k) // s + 1
     wo = (w - k) // s + 1
     for depth in (2, 3, 8):  # 8 clamps to k
@@ -780,6 +831,28 @@ def test_pipelined_launch_follows_one_rule(cuda):
                                  block_n=32, pipeline_depth=2)
     assert wide["pixels_per_thread"] == 1 and wide["blocks_y"] == 2
     assert wide["local_bytes"] == 0
+
+
+@pytest.mark.parametrize("b", [8, 4, 32])
+def test_b1_launch_follows_its_tiling_and_spills_nothing(cuda, b):
+    """B1 (and B1's gated body) at the serving, stream and training
+    stems: the launch `conv.b1_tiling` gives (whole 112-pixel rows, 5
+    row groups of 64 threads, 74,400 bytes), one wave on the card (the
+    occupancy the rule counts on holds), no local memory."""
+    shape = (b, 560, 560, 3)
+    tiling = conv.b1_tiling(shape, 8, 3, kernel=5, stride=5)
+    for gated_body in (False, True):
+        geo = conv.b1_launch(shape, 8, 3, kernel=5, stride=5,
+                             gated=gated_body)
+        for key in ("blocks_x", "blocks_y", "threads", "smem_bytes",
+                    "tile_px", "tiles"):
+            assert geo[key] == tiling[key], (key, gated_body)
+        assert geo["pixels_per_thread"] == conv.B1_PIXELS
+        assert geo["local_bytes"] == 0
+        assert geo["blocks_per_sm"] >= tiling["blocks_per_sm"]
+        assert geo["blocks_x"] * geo["blocks_y"] <= (
+            torch.cuda.get_device_properties(cuda).multi_processor_count
+            * geo["blocks_per_sm"])
 
 
 def test_pipelined_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -856,6 +929,11 @@ MATMUL_CASES = [  # (M, K, N, dw, dx)
     (100, 75, 8, 3, 3), (1, 75, 8, 3, 3), (130, 33, 5, 3, 3),
     (1024, 75, 8, 2, 1), (4096, 147, 32, 3, 3), (300, 300, 40, 4, 4),
     (8, 1, 1, 3, 2), (100_352, 75, 8, 3, 3),
+    # B6's tiling: a partial last tile (bulk copies), M·K not a multiple
+    # of 4 (4-byte copies), 4 N tiles of 8 at block_n 8, more tiles than
+    # one wave's blocks
+    (100_000, 75, 8, 3, 3), (1001, 75, 8, 3, 3), (4096, 75, 32, 3, 3),
+    (401_408, 75, 8, 3, 3),
 ]
 
 
@@ -892,6 +970,43 @@ def test_matmul_kernel_matches_plain(cuda, m, k, n, dw, dx, mode):
             x, w, s, coeffs=coeffs, mode="raw", block_m=blocks[0],
             block_n=blocks[1], block_k=blocks[2])
         torch.testing.assert_close(again, ref_raw + s, rtol=RTOL, atol=1e-5)
+
+
+@pytest.mark.parametrize("m,k,n", [(100_352, 75, 8), (4096, 147, 32),
+                                   (100_000, 75, 8)])
+def test_matmul_unaligned_x_gives_the_aligned_bits(cuda, m, k, n):
+    """x one float past a 16-byte address (4-byte copies) gives the bits
+    of the aligned x (bulk copies where the blocks take all of K)."""
+    x, w, s, coeffs = _matmul_case(m, k, n, 3, 3, cuda, seed=3)
+    buf = torch.empty(x.numel() + 1, device=cuda)
+    buf[1:].copy_(x.reshape(-1))
+    xu = buf[1:].view(x.shape)
+    assert xu.data_ptr() % 16
+    for blocks in (kernel.MATMUL_DEFAULT_BLOCKS, (112, 8, 128), (64, 8, 32)):
+        kw = dict(coeffs=coeffs, mode="quant", want_raw=True,
+                  block_m=blocks[0], block_n=blocks[1], block_k=blocks[2])
+        out, raw = kernel.p2m_matmul_fused(x, w, s, **kw)
+        out_u, raw_u = kernel.p2m_matmul_fused(xu, w, s, **kw)
+        assert torch.equal(out_u, out) and torch.equal(raw_u, raw), blocks
+
+
+@pytest.mark.parametrize("blocks", [None, (112, 8, 128), (64, 8, 32),
+                                    (256, 32, 128)])
+def test_matmul_launch_follows_its_tiling_and_spills_nothing(cuda, blocks):
+    """B6 at (100,352, 75, 8) (and (300, 300, 40) at one slot): the
+    launch `kernel.matmul_tiling` gives, one wave on the card, no local
+    memory."""
+    for m, k, n, dx in ((100_352, 75, 8, 3), (300, 300, 40, 4)):
+        bm, bn, bk = blocks or kernel.MATMUL_DEFAULT_BLOCKS
+        tiling = kernel.matmul_tiling(m, k, n, dx, block_m=bm, block_n=bn,
+                                      block_k=bk)
+        geo = kernel.matmul_launch(m, k, n, dx, block_m=bm, block_n=bn,
+                                   block_k=bk)
+        for key in ("blocks_x", "blocks_y", "threads", "smem_bytes",
+                    "slots", "tiles"):
+            assert geo[key] == tiling[key], key
+        assert geo["local_bytes"] == 0
+        assert geo["blocks_per_sm"] >= tiling["blocks_per_sm"]
 
 
 def test_matmul_wrapper_rejects_what_the_kernel_does_not_take(cuda):

@@ -239,8 +239,11 @@ def test_conv_candidates_respect_the_budget(b, h, w, c, n, k, s, budget):
     for bh, bn, depth in cands:
         smem = tune.conv_smem_bytes((bh, bn, depth), wo=wo, c=c, kernel=k,
                                     stride=s, dx=dx)
-        if depth == 0:
-            assert bh is None and smem <= 48 * 1024
+        if depth == 0:  # B1 keeps itself within its own budget
+            tiling = conv.b1_tiling((b, h, w, c), n, dx, kernel=k, stride=s,
+                                    block_n=bn)
+            assert bh is None and smem == tiling["smem_bytes"]
+            assert smem <= conv.B1_SMEM_BYTES <= tune.SMEM_BUDGET_BYTES
         else:
             assert smem <= budget
             assert 2 <= depth <= k and bh * wo <= conv.PIPE_THREADS
@@ -249,15 +252,161 @@ def test_conv_candidates_respect_the_budget(b, h, w, c, n, k, s, budget):
         assert all(d == 0 for *_, d in cands)
 
 
-def test_matmul_candidates_respect_the_budget():
-    for m, k, n in ((100_352, 75, 8), (4096, 147, 32), (8, 1, 1)):
-        cands = tune.matmul_candidates(m, k, n, dx=3)
-        assert cands and len(set(cands)) == len(cands)
-        for bm, bn, bk in cands:
-            assert tune.matmul_smem_bytes((bm, bn, bk), dx=3) \
-                <= tune.SMEM_BUDGET_BYTES
-            assert bm <= kernel.MATMUL_MAX_ROWS and bk <= k
-            assert bn == kernel.matmul_tile(n, bn)
+@pytest.mark.parametrize("m,k,n", [(100_352, 75, 8), (4096, 147, 32),
+                                   (8, 1, 1)])
+def test_matmul_candidates_respect_the_budget(m, k, n):
+    cands = tune.matmul_candidates(m, k, n, dx=3)
+    assert cands and len(set(cands)) == len(cands)
+    for bm, bn, bk in cands:
+        smem = tune.matmul_smem_bytes((bm, bn, bk), dx=3, k=k)
+        assert smem <= tune.SMEM_BUDGET_BYTES
+        tiling = kernel.matmul_tiling(m, k, n, 3, block_m=bm, block_n=bn,
+                                      block_k=bk)
+        assert smem == tiling["smem_bytes"]
+        assert bm <= kernel.MATMUL_MAX_ROWS and bk <= k
+        assert bn == kernel.matmul_tile(n, bn)
+
+
+# ------------------------------------------------- B1's and B6's tilings
+
+
+def _block_tiles(tiles, blocks, i):
+    """Block i's tiles, as ``csrc`` deals them: contiguous runs, the first
+    ``tiles % blocks`` blocks one more."""
+    per, extra = divmod(tiles, blocks)
+    t0 = i * per + min(i, extra)
+    return range(t0, t0 + per + (1 if i < extra else 0))
+
+
+#: (B, H, W, C, k, s, N, dx, block_n): the serving, stream and training
+#: stems; s < k; Wo = 799 (a row cut into tiles, the last partial); k =
+#: 15; N = 32 over N tiles of 8; a tile count that does not divide
+#: evenly over the grid (Ho·B = 9); odd W.
+B1_SHAPES = [
+    (8, 560, 560, 3, 8, 5, 5, 3, None),
+    (4, 560, 560, 3, 8, 5, 5, 3, None),
+    (32, 560, 560, 3, 8, 5, 5, 3, None),
+    (2, 64, 64, 3, 40, 5, 3, 3, None),
+    (1, 30, 4000, 3, 8, 5, 5, 3, None),
+    (2, 45, 45, 3, 8, 15, 15, 1, None),
+    (2, 40, 40, 3, 32, 5, 5, 3, 8),
+    (1, 45, 50, 3, 8, 5, 5, 3, None),
+    (3, 17, 23, 2, 5, 3, 2, 4, None),
+]
+
+
+@pytest.mark.parametrize("b,h,w,c,n,k,s,dx,block_n", B1_SHAPES)
+def test_b1_tiling_covers_each_pixel_once_within_one_image(
+        b, h, w, c, n, k, s, dx, block_n):
+    t = conv.b1_tiling((b, h, w, c), n, dx, kernel=k, stride=s,
+                       block_n=block_n)
+    ho, wo = conv.conv_out_spatial(h, k, s), conv.conv_out_spatial(w, k, s)
+    assert t["pieces"] == -(-wo // t["tile_px"]) and t["tile_px"] <= wo
+    assert t["tiles"] == b * ho * t["pieces"]
+    groups = min(k, conv.B1_GROUPS)  # a row group for each kernel row
+    assert t["threads"] % (32 * groups) == 0
+    assert t["threads"] // groups * conv.B1_PIXELS >= t["tile_px"]
+    assert t["threads"] <= conv.B1_GROUPS * conv.B1_GROUP_THREADS
+    seen = np.zeros(b * ho * wo, np.int64)
+    sizes = []
+    for i in range(t["blocks_x"]):
+        run = _block_tiles(t["tiles"], t["blocks_x"], i)
+        sizes.append(len(run))
+        for tile in run:
+            row, piece = divmod(tile, t["pieces"])
+            ow0 = piece * t["tile_px"]
+            tp = min(t["tile_px"], wo - ow0)
+            assert tp >= 1  # a tile lies in one output row, one image
+            seen[row * wo + ow0: row * wo + ow0 + tp] += 1
+    assert (seen == 1).all()
+    assert max(sizes) - min(sizes) <= 1  # balanced within one tile
+    assert t["smem_bytes"] <= conv.B1_SMEM_BYTES <= tune.SMEM_BUDGET_BYTES
+    assert t["smem_bytes"] == conv.b1_smem_bytes(t["tile_px"], c, k, s, dx,
+                                                 t["n_tile"])
+    assert t["blocks_y"] == -(-n // t["n_tile"])
+    # one wave: every block resident at once
+    assert t["blocks_x"] * t["blocks_y"] <= conv.H100_SMS * t["blocks_per_sm"]
+
+
+@pytest.mark.parametrize("b", [8, 4, 32])
+def test_b1_tiling_at_the_stem_is_whole_rows_in_one_wave(b):
+    """A tile is a whole 112-pixel output row, its band one contiguous
+    33,600-byte span; two slots and W̃ take 74,400 bytes (the parts go
+    into the band rows); blocks of 5 row groups of 64 threads, two an SM
+    by the launch bounds; the grid fills one wave (264 blocks) or has a
+    block a tile."""
+    t = conv.b1_tiling((b, 560, 560, 3), 8, 3, kernel=5, stride=5)
+    assert (t["tile_px"], t["pieces"], t["threads"]) == (112, 1, 320)
+    assert t["smem_bytes"] == 74_400 and t["blocks_per_sm"] == 2
+    assert t["tiles"] == b * 112
+    assert t["blocks_x"] == min(264, b * 112) and t["blocks_y"] == 1
+
+
+def test_b1_tiling_cuts_tiles_below_a_warp_and_raises_as_before():
+    """Where a warp's bands do not fit (k = s = 15, C = 3: 64 pixels' two
+    bands take 345,600 bytes), tiles hold fewer pixels and B1 still runs;
+    where W̃ does not fit its 48 KB (dx = 3) it raises, as it always did."""
+    t = conv.b1_tiling((1, 15, 1500, 3), 8, 1, kernel=15, stride=15)
+    assert t["tile_px"] < 32 * conv.B1_PIXELS and t["threads"] == 5 * 32
+    assert t["smem_bytes"] <= conv.B1_SMEM_BYTES
+    with pytest.raises(ValueError, match="does not fit"):
+        conv.b1_tiling((1, 15, 1500, 3), 8, 3, kernel=15, stride=15)
+
+
+#: (M, K, N, dx, blocks): the benchmark's shape at the default and other
+#: blocks, a partial last tile, several N tiles, K tiles, one slot.
+B6_SHAPES = [
+    (100_352, 75, 8, 3, None),
+    (100_352, 75, 8, 3, (112, 8, 128)),
+    (100_352, 75, 8, 3, (64, 8, 32)),
+    (4096, 147, 32, 3, (256, 32, 128)),
+    (130, 33, 5, 3, None),
+    (300, 300, 40, 4, (256, 32, 128)),
+    (8, 1, 1, 2, (1, 16, 7)),
+]
+
+
+@pytest.mark.parametrize("m,k,n,dx,blocks", B6_SHAPES)
+def test_matmul_tiling_covers_each_row_once(m, k, n, dx, blocks):
+    bm, bn, bk = blocks or kernel.MATMUL_DEFAULT_BLOCKS
+    t = kernel.matmul_tiling(m, k, n, dx, block_m=bm, block_n=bn,
+                             block_k=bk)
+    assert t["tiles"] == -(-m // bm) and t["block_k"] == min(bk, k)
+    assert t["threads"] % 32 == 0
+    per_thread = kernel.MATMUL_ROWS_PER_THREAD if t["n_tile"] <= 8 else 1
+    assert t["threads"] * per_thread >= bm
+    seen = np.zeros(m, np.int64)
+    sizes = []
+    for i in range(t["blocks_x"]):
+        run = _block_tiles(t["tiles"], t["blocks_x"], i)
+        sizes.append(len(run))
+        for tile in run:
+            seen[tile * bm: min(m, (tile + 1) * bm)] += 1
+    assert (seen == 1).all()
+    assert max(sizes) - min(sizes) <= 1
+    assert t["smem_bytes"] <= conv.SMEM_MAX
+    assert t["slots"] in (1, 2)
+    assert t["blocks_x"] * t["blocks_y"] <= conv.H100_SMS * t["blocks_per_sm"]
+
+
+def test_matmul_tiling_at_the_benchmark_shape():
+    """128-row tiles of the 100,352 x 75 patches: 784 tiles, each one
+    38,400-byte span; W̃ once (7,200 bytes) and two slots, 84,000 bytes,
+    two blocks an SM, 264 blocks of 64 threads (two rows a thread), about
+    3 tiles a block;
+    the default blocks fit the tuner's budget.  Where two slots do not
+    fit a block, one does."""
+    t = kernel.matmul_tiling(100_352, 75, 8, 3, block_m=128, block_n=32,
+                             block_k=128)
+    assert (t["tiles"], t["slots"], t["smem_bytes"]) == (784, 2, 84_000)
+    assert (t["blocks_per_sm"], t["blocks_x"], t["threads"]) == (2, 264, 64)
+    assert t["smem_bytes"] <= tune.SMEM_BUDGET_BYTES
+    one = kernel.matmul_tiling(300, 300, 40, 4, block_m=256, block_n=32,
+                               block_k=128)
+    assert one["slots"] == 1
+    with pytest.raises(ValueError, match="block_m"):
+        kernel.matmul_tiling(100, 75, 8, 3, block_m=512, block_n=8,
+                             block_k=75)
 
 
 def test_autotune_enabled_on_the_cpu_exercises_the_machinery(clean_tuner,
