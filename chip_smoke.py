@@ -82,6 +82,23 @@ no result:
 5f. the port's repaired faults: a prompt token ``padded_vocab`` fails
    only its request (SMOKE rwkv), and the engine serves the next; every
    kernel wrapper raises on an input that requires grad under grad mode;
+5g. LM training: (a) the WKV autograd Function (B7 forward, the
+   closed-form backward) at (8, 64, 40, 64) from a nonzero state with both
+   cotangents, its outputs and six gradients within 1e-4 of the largest
+   |value| of float64 autograd of the plain twin; (b) RWKV-6 3B's first
+   two layers at full width, batch 8 x 128: every gradient leaf through
+   B7 within 1e-3 of the leaf's largest |value| through the plain WKV
+   (both float32); (c) `launch/train.py`'s ``main`` for RWKV-6 3B at full
+   width and depth, float32, AdamW in place, 3 steps at 8 x 128 (the
+   served weights freed first): every loss finite, the moments finite
+   (so every gradient was), B7 twice a layer a step (forward and remat
+   recompute), the step's time by the host clock through a synchronize,
+   tokens/s and the peak memory beside the card's name and power limit,
+   then the step's parts by CUDA events (forward, forward + backward, a
+   layer's recompute, B7, the closed-form WKV backward, head + CE, the
+   in-place AdamW); (d) at SMOKE, 4 steps with checkpoints, a fresh run
+   that restores and takes 2 more: the losses equal one 6-step run's bit
+   for bit;
 6. the training path: 6 steps of `make_vww_train_step` on `CONFIG` at
    batch 32 with the paper's `sgd(step_decay(...), momentum=0.9)`; every
    loss finite, each step launches B1 or B2 (as tuned), B3 and B4
@@ -126,7 +143,9 @@ no result:
 ``python3 chip_smoke.py --b4`` runs phases 1, 4 and B4's times alone
 (`b4_only`), ``python3 chip_smoke.py --b1b6`` phase 1, the builds of
 B1's and B6's sources and their checks and times alone (`b1b6_only`),
-each on this tree or, copied into its root, on an older one.
+each on this tree or, copied into its root, on an older one;
+``python3 chip_smoke.py --lm-train`` phase 1, the build of ``wkv.cu``
+and phase 5g alone (`lm_train_only`).
 """
 from __future__ import annotations
 
@@ -197,14 +216,14 @@ def ptxas_summary(report: str) -> list[str]:
     return out
 
 
-def cuda_ms(torch, fn, flush) -> float:
-    """Median device time of ``fn`` by CUDA events, L2 flushed before
-    each run (the engine's caller finds it cold)."""
+def cuda_ms(torch, fn, flush, reps=REPS) -> float:
+    """Median device time of ``fn`` by CUDA events over ``reps`` runs, L2
+    flushed before each run (the engine's caller finds it cold)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -1484,6 +1503,7 @@ def lm_path(torch, np, dev, cfg):
     """Phase 5c: serve ``cfg`` (rwkv6-3b, float32, random weights from
     ``SEED``) through `ServeEngine` with chunked prefill and through
     `SessionEngine`.  Returns what phase 9 reads."""
+    from repro_torch.common.pytree import param_count
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.kernels.rwkv_wkv import kernel
     from repro_torch.models import rwkv6
@@ -1495,13 +1515,13 @@ def lm_path(torch, np, dev, cfg):
         SessionRequest,
         drive,
     )
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import tree_map
 
     t0 = time.perf_counter()
     params, _ = get_family(cfg).init(torch.Generator(dev).manual_seed(SEED),
                                      cfg)
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in tree_leaves(params))
+    n_params = param_count(params)
     print(f"[5c] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.n_rwkv_heads} heads of {cfg.rwkv_head_dim}, d_ff "
           f"{cfg.d_ff}, vocab {cfg.vocab}; {n_params} parameters "
@@ -1771,16 +1791,399 @@ def lm_path(torch, np, dev, cfg):
             "serve_launches": launches, "session_launches": s_launches}
 
 
+LM_TRAIN_STEPS = 3  # full width and depth, through launch/train.py
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 128  # the launcher's defaults
+WKV_TRAIN_SHAPE = (LM_TRAIN_BATCH, LM_TRAIN_SEQ, 40, 64)  # (B, S, H, D)
+WKV_GRAD_TOL = 1e-4  # of the largest |float64 value|, as B3 and B4
+# Depth 2 at full width: each gradient leaf of the B7 path within this
+# share of the leaf's largest |value| of the plain-WKV path's, both
+# float32, and of the path whose WKV runs in float64 (every leaf sat
+# near 2e-4 from the plain path's at this seed, PERF.md §6).
+LM_GRAD_TOL = 1e-3
+LM_LOSS_RTOL = 1e-5  # depth 2: the three losses, of the float64 one
+LM_RESUME_STEPS = (4, 2)  # SMOKE: 4 steps, a restore, 2 more
+TRAIN_REPS = 5  # CUDA-event runs a part of the full-width step
+
+
+def check_wkv_grads(torch, np, dev):
+    """Phase 5g (a): `ops.wkv` (B7 forward, the closed-form backward) at
+    the serving tick's shape and at the train step's, from a nonzero
+    state with both cotangents, its outputs and six gradients against
+    autograd of the plain twin in float64 on the card.  Returns the
+    largest error (of the largest |value|)."""
+    from repro_torch.kernels.rwkv_wkv import kernel, ops, ref
+
+    worst = 0.0
+    for i, (what, shape) in enumerate((("serving tick", WKV_SERVE_SHAPE),
+                                       ("train step", WKV_TRAIN_SHAPE))):
+        ins = wkv_inputs(torch, np, dev, *shape, SEED + 40 + 2 * i)
+        gen = torch.Generator(dev).manual_seed(SEED + 41 + 2 * i)
+        dy = torch.randn(ins[0].shape, generator=gen, device=dev)
+        ds = torch.randn(ins[5].shape, generator=gen, device=dev)
+        counted = kernel.wkv_fused.launches
+        live = [a.clone().requires_grad_() for a in ins]
+        y, sf = ops.wkv(*live)
+        grads = torch.autograd.grad((y, sf), live, (dy, ds))
+        torch.cuda.synchronize()
+        check(kernel.wkv_fused.launches == counted + 1, "the WKV Function "
+              "did not launch B7 once")
+        kernel.wkv_fused.launches = counted
+        live64 = [a.double().requires_grad_() for a in ins]
+        y64, s64 = ref.wkv_chunked_plain(*live64)
+        want = torch.autograd.grad((y64, s64), live64, (dy.double(),
+                                                        ds.double()))
+        line = ""
+        for name, got, w in zip(("y", "state", "dr", "dk", "dv", "dlw", "du",
+                                 "dstate0"), (y, sf, *grads),
+                                (y64, s64, *want)):
+            got, w = got.detach(), w.detach()
+            err = float((got.double() - w).abs().max())
+            scale = float(w.abs().max())
+            worst = max(worst, err / scale)
+            line += f" {name} {err / scale:.2e} (of {scale:.2e})"
+            check(err <= WKV_GRAD_TOL * scale, f"WKV Function at {shape}: "
+                  f"{name} differs by {err}, more than {WKV_GRAD_TOL} of "
+                  f"{scale}")
+        print(f"[5g] (a) WKV Function at the {what}'s {shape} vs float64 "
+              f"autograd of the plain twin, nonzero state, both cotangents; "
+              f"error of the largest |value| (limit {WKV_GRAD_TOL}):{line}")
+    return worst
+
+
+def lm_batch(torch, dev, vocab, seed=0):
+    """The launcher's batch: `SyntheticLMDataset` at 8 x 128, on ``dev``."""
+    from repro_torch.data import SyntheticLMDataset
+
+    data = SyntheticLMDataset(vocab=vocab, seq_len=LM_TRAIN_SEQ,
+                              batch=LM_TRAIN_BATCH, seed=seed).batch_at(0)
+    return {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+
+
+def lm_value_and_grad(torch, params, batch, cfg):
+    """(loss, gradient leaves in `tree_leaves` order) of the LM loss."""
+    from repro_torch.models.families import get_family
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    live = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    loss, _ = get_family(cfg).loss(tree_unflatten(params, live), batch, cfg)
+    return loss.detach(), torch.autograd.grad(loss, live)
+
+
+def wkv_float64(r, k, v, lw, u, state, chunk=None, impl=None):
+    """The plain WKV twin in float64, its outputs rounded to float32: the
+    depth-2 witness's WKV (autograd runs through it in float64)."""
+    from repro_torch.kernels.rwkv_wkv import ref
+
+    y, sf = ref.wkv_chunked_plain(*(a.double() for a in (r, k, v, lw, u,
+                                                         state)))
+    return y.float(), sf.float()
+
+
+def check_lm_grads_depth2(torch, np, dev, cfg):
+    """Phase 5g (b): the first two layers at full width, batch 8 x 128:
+    the gradient tree through B7 against the one through the plain WKV,
+    both float32, and against a third whose WKV runs in float64 (the rest
+    of the model as in the other two), each leaf within ``LM_GRAD_TOL`` of
+    its largest |value|; the three losses within ``LM_LOSS_RTOL``.  Prints
+    how far each float32 WKV path sits from the float64 one.  Returns the
+    largest share of B7 against the plain WKV."""
+    from repro_torch.common.pytree import (
+        assert_trees_all_finite,
+        flatten_with_names,
+    )
+    from repro_torch.kernels.rwkv_wkv import kernel
+    from repro_torch.models import rwkv6
+    from repro_torch.models.families import get_family
+    from repro_torch.tree import tree_unflatten
+
+    c2 = cfg.replace(n_layers=2)
+    params, _ = get_family(c2).init(torch.Generator(dev).manual_seed(SEED),
+                                    c2)
+    batch = lm_batch(torch, dev, cfg.vocab, SEED + 1)
+    counted = kernel.wkv_fused.launches
+    runs = {impl: lm_value_and_grad(torch, params, batch,
+                                    c2.replace(wkv_impl=impl))
+            for impl in ("cuda", "plain")}
+    torch.cuda.synchronize()
+    check(kernel.wkv_fused.launches - counted == 2 * c2.n_layers,
+          f"depth 2: B7 launched {kernel.wkv_fused.launches - counted} "
+          "times, not twice a layer")
+    kernel.wkv_fused.launches = counted
+    real = rwkv6.wkv_chunked
+    rwkv6.wkv_chunked = wkv_float64
+    try:
+        runs["float64"] = lm_value_and_grad(torch, params, batch,
+                                            c2.replace(wkv_impl="plain"))
+    finally:
+        rwkv6.wkv_chunked = real
+    check(kernel.wkv_fused.launches == counted, "the float64 witness "
+          "launched B7")
+    named = {impl: dict(flatten_with_names(tree_unflatten(params, list(g))))
+             for impl, (_, g) in runs.items()}
+    assert_trees_all_finite(named["cuda"], "depth-2 gradient (B7)")
+
+    def shares(got, want):
+        out = {}
+        for name, w in named[want].items():
+            scale = float(w.abs().max())
+            err = float((named[got][name] - w).abs().max())
+            out[name] = err / scale if scale else err
+        return sorted(out.items(), key=lambda kv: -kv[1])
+
+    pairs = {("cuda", "plain"): "B7 vs plain", ("cuda", "float64"):
+             "B7 vs float64", ("plain", "float64"): "plain vs float64"}
+    worst = {}
+    loss = {impl: float(run[0]) for impl, run in runs.items()}
+    print(f"[5g] (b) {c2.name} at depth 2, full width, batch "
+          f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}: loss B7 {loss['cuda']:.9f}, "
+          f"plain {loss['plain']:.9f}, float64 WKV {loss['float64']:.9f}")
+    for pair, what in pairs.items():
+        ranked = shares(*pair)
+        worst[pair] = ranked[0]
+        print(f"[5g] (b) gradient leaves, {what}: largest error of the "
+              f"leaf's largest |value| (limit {LM_GRAD_TOL}): "
+              + ", ".join(f"{n} {v:.2e}" for n, v in ranked[:5])
+              + f"; the median leaf "
+              f"{statistics.median(v for _, v in ranked):.2e}")
+    for a, b in (("cuda", "plain"), ("cuda", "float64"),
+                 ("plain", "float64")):
+        check(abs(loss[a] - loss[b]) <= LM_LOSS_RTOL * abs(loss["float64"]),
+              f"depth 2: loss {a} {loss[a]} and {b} {loss[b]} differ by more "
+              f"than {LM_LOSS_RTOL}")
+    for pair in (("cuda", "plain"), ("cuda", "float64")):
+        name, share = worst[pair]
+        check(share <= LM_GRAD_TOL, f"depth 2, {pairs[pair]}: gradient leaf "
+              f"{name} differs by {share} of its largest value")
+    return worst[("cuda", "plain")][1], worst[("cuda", "float64")][1], \
+        worst[("plain", "float64")][1]
+
+
+def time_lm_train(torch, np, dev, trainer, cfg, flush):
+    """Phase 5g: the parts of the full-width train step on its own state,
+    each timed alone by CUDA events (median of ``TRAIN_REPS``): the
+    forward (loss with remat), forward + backward, one layer's recompute,
+    B7 forward and the closed-form WKV backward at a layer's shape, the
+    head and CE forward + backward, and the in-place AdamW update (which
+    writes the state).  Returns the parts in ms a step."""
+    from repro_torch.common.pytree import param_count
+    from repro_torch.kernels.rwkv_wkv import kernel, ops
+    from repro_torch.models import rwkv6
+    from repro_torch.models.families import cross_entropy, get_family
+    from repro_torch.models.layers import lm_head
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    counted = kernel.wkv_fused.launches
+    state = trainer.state
+    params = state["params"]
+    batch = lm_batch(torch, dev, cfg.vocab, SEED + 2)
+    live = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    tree = tree_unflatten(params, live)
+    family = get_family(cfg)
+
+    def forward():
+        return family.loss(tree, batch, cfg)[0]
+
+    def forward_backward():
+        return torch.autograd.grad(forward(), live)
+
+    parts = {"forward (remat: layer inputs kept)":
+             cuda_ms(torch, forward, flush, TRAIN_REPS)}
+    parts["forward + backward"] = cuda_ms(torch, forward_backward, flush,
+                                          TRAIN_REPS)
+    b, s, d = LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.d_model
+    h, hd = cfg.n_rwkv_heads, cfg.rwkv_head_dim
+    gen = torch.Generator(dev).manual_seed(SEED + 3)
+    x = torch.randn((b, s, d), generator=gen, device=dev)
+    lp = tree_map(lambda a: a[0], tree["layers"])
+    st = tree_map(lambda a: a[0], rwkv6.init_rwkv_state(cfg, b,
+                                                        device=dev)[0])
+    layer_ms = cuda_ms(torch, lambda: rwkv6._layer(x, lp, st, cfg), flush)
+    wkv_in = [torch.randn((b, s, h, hd), generator=gen, device=dev)
+              for _ in range(3)]
+    lw = -torch.rand((b, s, h, hd), generator=gen, device=dev) * 5
+    u = params["layers"]["att"]["u"][0].float()
+    s0 = torch.zeros((b, h, hd, hd), device=dev)
+    dy = torch.randn((b, s, h, hd), generator=gen, device=dev)
+    with torch.no_grad():
+        b7_ms = cuda_ms(torch, lambda: kernel.wkv_fused(*wkv_in, lw, u, s0),
+                        flush)
+    bwd_ms = cuda_ms(torch, lambda: ops.wkv_backward(*wkv_in, lw, u, s0, dy,
+                                                     None), flush)
+    head = [tree["embed"]["final_norm"]["scale"], tree["embed"]["head"]]
+    xh = x.clone().requires_grad_()
+
+    def head_ce():
+        logits = lm_head(tree["embed"], xh, cfg)
+        return torch.autograd.grad(cross_entropy(logits, batch["targets"]),
+                                   [xh, *head])
+
+    head_ms = cuda_ms(torch, head_ce, flush)
+    grads = tree_unflatten(params, list(forward_backward()))
+    opt = adamw(cosine_warmup(3e-3, warmup=20, total=LM_TRAIN_STEPS))
+    opt_ms = cuda_ms(torch, lambda: opt.update_in_place(
+        grads, state["opt"], params, state["step"]), flush, TRAIN_REPS)
+    del grads
+    kernel.wkv_fused.launches = counted
+    n_params = param_count(params)
+    # read p, g, m, v and write p, m, v once each, float32
+    opt_bound_ms, _ = bound(7 * 4 * n_params, 0)
+    n = cfg.n_layers
+    parts.update({
+        f"  of which recompute, one layer's forward x {n}": n * layer_ms,
+        f"  of which B7 forward x {2 * n} (forward and recompute)":
+            2 * n * b7_ms,
+        f"  of which WKV backward (closed form, plain) x {n}": n * bwd_ms,
+        "  of which head + CE forward and backward": head_ms,
+        "optimizer (AdamW in place, clip included)": opt_ms,
+        "  its bound (p, g, m, v read and p, m, v written once)":
+            opt_bound_ms})
+    for name, t in parts.items():
+        print(f"[5g] train step part: {name}: {t:.3f} ms")
+    print(f"[5g] train step parts: forward + backward + optimizer "
+          f"{parts['forward + backward'] + opt_ms:.3f} ms; one layer's "
+          f"forward {layer_ms:.3f} ms, B7 {b7_ms:.4f} ms, WKV backward "
+          f"{bwd_ms:.3f} ms at ({b}, {s}, {h}, {hd})")
+    return parts
+
+
+def lm_train_path(torch, np, dev, lm, flush=None):
+    """Phase 5g: LM training.  (a) the WKV Function against float64
+    autograd; (b) depth 2 at full width, B7 against the plain WKV's
+    gradients; (c) `launch/train.py`'s ``main`` at full width and depth for
+    ``LM_TRAIN_STEPS`` steps (every loss and gradient finite, B7 twice a
+    layer a step, the step's time and peak memory), then its parts; (d)
+    at SMOKE, 4 steps with checkpoints, a fresh run that restores and
+    takes 2 more, bit for bit the losses of 6 steps in one run.  The
+    served parameters are freed for (c) and drawn again from the seed
+    after it.  Returns what the kernels line reads."""
+    import tempfile
+
+    from repro_torch.common.pytree import (
+        assert_trees_all_finite,
+        param_count,
+    )
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.rwkv_wkv import kernel
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.families import get_family
+
+    cfg = lm["cfg"]
+    wkv_grad_err = check_wkv_grads(torch, np, dev)
+    depth2_err, depth2_err64, plain_err64 = check_lm_grads_depth2(
+        torch, np, dev, cfg)
+
+    # (c) the served parameters give way to the train state
+    lm["params"] = None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    real, per_step = launch_train.make_train_step, []
+
+    def counting_step(*args, **kw):
+        step = real(*args, **kw)
+
+        def counted(state, batch):
+            before = kernel.wkv_fused.launches
+            out = step(state, batch)
+            per_step.append(kernel.wkv_fused.launches - before)
+            return out
+
+        return counted
+
+    launch_train.make_train_step = counting_step
+    kernel.wkv_fused.launches = 0
+    t0 = time.perf_counter()
+    try:
+        trainer = launch_train.main(["--arch", LM_ARCH, "--steps",
+                                     str(LM_TRAIN_STEPS)])
+    finally:
+        launch_train.make_train_step = real
+    torch.cuda.synchronize()
+    launches = kernel.wkv_fused.launches
+    run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    total_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    hist = trainer.history
+    state = trainer.state
+    n_params = param_count(state["params"])
+    losses = [h["loss"] for h in hist]
+    step_s = [h["step_time_s"] for h in hist]
+    print(f"[5g] (c) launch/train.py --arch {LM_ARCH} --steps "
+          f"{LM_TRAIN_STEPS}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params} parameters fp32, batch {LM_TRAIN_BATCH} x "
+          f"{LM_TRAIN_SEQ}, AdamW in place; {run_s:.2f} s with the init")
+    print(f"[5g] (c) losses {losses}; step times (host clock, through a "
+          f"synchronize) " + ", ".join(f"{t * 1e3:.1f}" for t in step_s)
+          + f" ms; B7 launches a step {per_step}")
+    check(len(hist) == LM_TRAIN_STEPS and state["step"] == LM_TRAIN_STEPS,
+          f"{len(hist)} steps ran, state step {state['step']}")
+    check(all(np.isfinite(v) for v in losses), f"a loss is not finite: "
+          f"{losses}")
+    # AdamW's moments are finite only if every step's gradient was
+    for name, tree in (("params", state["params"]), ("m", state["opt"]["m"]),
+                       ("v", state["opt"]["v"])):
+        assert_trees_all_finite(tree, f"the train state's {name}")
+    check(per_step == [2 * cfg.n_layers] * LM_TRAIN_STEPS
+          and launches == 2 * cfg.n_layers * LM_TRAIN_STEPS,
+          f"B7 launched {per_step} a step ({launches} in all), not "
+          f"{2 * cfg.n_layers} a step")
+    check(peak_gb < total_gb, f"peak {peak_gb} GB of {total_gb} GB")
+    steady = statistics.median(step_s[1:])
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    print(f"[5g] (c) train step {steady * 1e3:.1f} ms (median of steps "
+          f"2-{LM_TRAIN_STEPS}), {tokens / steady:.1f} tokens/s; peak "
+          f"memory allocated {peak_gb:.2f} GB (max_memory_allocated, "
+          f"{base_gb:.2f} GB of other phases resident before) of "
+          f"{total_gb:.2f} GB; card {smi_line()}")
+    if flush is None:
+        flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
+                            device=dev)
+    parts = time_lm_train(torch, np, dev, trainer, cfg, flush)
+    del trainer, state, flush
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # (d) resume at SMOKE, bit for bit
+    smoke = ["--arch", LM_ARCH, "--smoke"]
+    whole = launch_train.main(smoke + ["--steps", str(sum(LM_RESUME_STEPS))])
+    with tempfile.TemporaryDirectory(prefix=".ckpt-", dir=ROOT) as ckdir:
+        ck = ["--ckpt-dir", ckdir, "--ckpt-every", "2"]
+        first = launch_train.main(smoke + ck + ["--steps",
+                                                str(LM_RESUME_STEPS[0])])
+        second = launch_train.main(smoke + ck + ["--steps",
+                                                 str(LM_RESUME_STEPS[1])])
+    got = [h["loss"] for h in first.history + second.history]
+    want = [h["loss"] for h in whole.history]
+    scfg = get_smoke_config(LM_ARCH)
+    print(f"[5g] (d) {scfg.name} on the card: {LM_RESUME_STEPS[0]} steps, "
+          f"restored at step {first.state['step']} by a fresh trainer, "
+          f"{LM_RESUME_STEPS[1]} more: losses {got}; one run of "
+          f"{sum(LM_RESUME_STEPS)}: {want}; bit for bit: {got == want}")
+    check(second.state["step"] == sum(LM_RESUME_STEPS) and got == want,
+          "the resumed run's losses differ from one uninterrupted run's")
+    del whole, first, second
+
+    lm["params"], _ = get_family(cfg).init(
+        torch.Generator(dev).manual_seed(SEED), cfg)
+    return {"launches": launches, "wkv_grad_err": wkv_grad_err,
+            "depth2_err": depth2_err, "depth2_err_vs_float64": depth2_err64,
+            "plain_err_vs_float64": plain_err64, "step_ms": steady * 1e3,
+            "peak_gb": peak_gb, "parts": parts}
+
+
 def time_lm(torch, np, dev, lm, wkv_in, flush):
     """Phase 9, LM part: B7 alone at the serving tick's shape beside its
     bound and its plain twin; the engine's time per prefill and per
     decode tick, warm; and the parts of each, timed alone.  Returns B7's
     row of the kernels line, without launches and error."""
+    from repro_torch.common.pytree import param_count
     from repro_torch.kernels.rwkv_wkv import kernel, ref
     from repro_torch.models import rwkv6
     from repro_torch.models.layers import apply_norm, embed_tokens, lm_head
     from repro_torch.serving import drive
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import tree_map
 
     counted = kernel.wkv_fused.launches
     r, k, v, lw, u, s0 = wkv_in
@@ -1826,7 +2229,7 @@ def time_lm(torch, np, dev, lm, wkv_in, flush):
     eng._launch = timed
     drive(eng, lm["requests"](), on_undrained="raise")
     tick = {kind: statistics.median(v) for kind, v in per.items()}
-    weight_bytes = 4 * sum(p.numel() for p in tree_leaves(params))
+    weight_bytes = 4 * param_count(params)
     print(f"[9] LM engine, warm (host clock): prefill tick "
           f"{tick['prefill']:.3f} ms (median of {len(per['prefill'])}, "
           f"{LM_MAX_BATCH} slots x {LM_CHUNK} tokens), decode tick "
@@ -2531,6 +2934,28 @@ def time_matmul(torch, np, dev, flush, adc):
             "blocks": list(blocks), "read_ms": read_ms, "launch": geo}
 
 
+def lm_train_only(torch, np, dev) -> int:
+    """``chip_smoke.py --lm-train``: phase 1, the build of ``wkv.cu`` with
+    its ptxas lines, and phase 5g alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rwkv_wkv import kernel as wkv_kernel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[1] card: {smi_line()}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
+    wkv_kernel.build_wkv()
+    seconds, report = _build.BUILD_INFO["wkv"]
+    print(f"[2] wkv.cu: nvcc {seconds:.2f} s")
+    for line in ptxas_summary(report):
+        print(f"    ptxas: {line}")
+    lm = {"cfg": get_config(LM_ARCH).replace(dtype=torch.float32)}
+    out = lm_train_path(torch, np, dev, lm)
+    print(json.dumps({k: v for k, v in out.items()}))
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2547,6 +2972,8 @@ def main() -> int:
         return b4_only(torch, np, torch.device("cuda"))
     if sys.argv[1:] == ["--b1b6"]:
         return b1b6_only(torch, np, torch.device("cuda"))
+    if sys.argv[1:] == ["--lm-train"]:
+        return lm_train_only(torch, np, torch.device("cuda"))
 
     from repro_torch.configs.p2m_vww import (
         CONFIG,
@@ -2748,6 +3175,7 @@ def main() -> int:
     lm = lm_path(torch, np, dev,
                  get_config(LM_ARCH).replace(dtype=torch.float32))
     check_faults(torch, np, dev)
+    lm_train = lm_train_path(torch, np, dev, lm)
 
     # ------------------------------------------------------- phase 6
     train = train_path(torch, np, dev)
@@ -2942,9 +3370,11 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/rwkv_wkv/csrc/wkv.cu",
         "replaces": "src/repro/kernels/rwkv_wkv/kernel.py:108",
-        # the LM path: ServeEngine's and SessionEngine's prefill ticks
-        "launches": lm["launches"],
-        "launches_by_path": {"lm": lm["launches"]},
+        # the LM path: ServeEngine's and SessionEngine's prefill ticks;
+        # the LM train steps (forward and recompute, phase 5g (c))
+        "launches": lm["launches"] + lm_train["launches"],
+        "launches_by_path": {"lm": lm["launches"],
+                             "lm_train": lm_train["launches"]},
         "max_abs_err": wkv_err,
         **wkv_row,
     })

@@ -13,10 +13,11 @@ tree)``) into the port's tree of tensors on ``device``:
   since ``x @ W`` is ``x @ W`` in both frameworks (the 4-D ``lora_b`` is
   no ``w``).
 
-`train_state_from_reference` carries a whole VWW train state across:
-``params``, ``bn``, the optimizer state (``mu``, or ``m`` and ``v``, which
-mirror the parameters and so take the same layouts), ``extras.ef_error``
-and ``step`` (a host int).
+`train_state_from_reference` carries a whole train state across, a VWW
+one or an LM one: ``params``, ``bn`` where present (VWW), the optimizer
+state (``mu``, or ``m`` and ``v``, which mirror the parameters and so
+take the same layouts), ``extras`` where present (``ef_error``) and
+``step`` (a host int).
 """
 from __future__ import annotations
 
@@ -40,10 +41,11 @@ def tree_from_reference(tree, *, device):
 
 
 def train_state_from_reference(state: dict, *, device) -> dict:
-    """Reference VWW train state (numpy leaves, `repro.train.vision.
-    vww_train_state`'s structure) → the port's, tensors on ``device``."""
+    """Reference train state (numpy leaves, the structure of
+    `repro.train.vision.vww_train_state` or `repro.train.state.TrainState`)
+    → the port's, tensors on ``device``."""
     out = {key: tree_from_reference(state[key], device=device)
-           for key in ("params", "bn", "opt")}
+           for key in ("params", "bn", "opt") if key in state}
     out["step"] = int(np.asarray(state["step"]))
     if "extras" in state:
         out["extras"] = tree_from_reference(state["extras"], device=device)

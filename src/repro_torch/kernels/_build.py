@@ -77,8 +77,8 @@ def refuse_grad(name: str, *tensors) -> None:
     the plain twin on the CPU is differentiable.  Each wrapper calls this
     on its CUDA path: with grad mode on, an input that requires grad is
     an error.  Differentiate through the op's autograd Function
-    (`P2MConvFunction`, `p2m_matmul`), or call the wrapper under
-    `torch.no_grad` as the engines do."""
+    (`P2MConvFunction`, `p2m_matmul`, `WKVFunction`), or call the
+    wrapper under `torch.no_grad` as the engines do."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(

@@ -113,9 +113,11 @@ def wkv_fused(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B,H,D,D) float32 → (y (B,S,H,D), final state (B,H,D,D)).
 
     A CUDA tensor goes to the CUDA kernel; a CPU tensor to
-    `wkv_chunked_plain` (module docstring).  The kernel has no backward
-    yet: on the card, an input that requires grad under grad mode raises
-    (`_build.refuse_grad`)."""
+    `wkv_chunked_plain` (module docstring).  The kernel computes no
+    gradient: on the card, an input that requires grad under grad mode
+    raises (`_build.refuse_grad`); differentiate through
+    `ops.WKVFunction` (``ops.wkv(impl="cuda")``), whose backward is the
+    closed form in plain PyTorch."""
     if r.is_cuda:
         return _launch_cuda(r, k, v, lw, u, state, chunk)
     return wkv_chunked_plain(r, k, v, lw, u, state, chunk)

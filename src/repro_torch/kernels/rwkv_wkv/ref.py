@@ -95,7 +95,8 @@ def wkv_chunked_plain(r, k, v, lw, u, state, chunk: int = WKV_CHUNK):
 
 def chunk_start_states(k, v, lw, state, chunk: int):
     """Every chunk's *entry* state by a state-only forward scan (the
-    residual the closed-form backward needs).  Returns (final state,
+    residual of the reference's closed-form backward; `ops.wkv_backward`
+    forms the same states from its batched k·vᵀ).  Returns (final state,
     per-chunk entry states (N,B,H,D,D))."""
     _, kc, vc, lwc, n, _ = chunk_inputs(k, k, v, lw, chunk)
     starts = []

@@ -18,9 +18,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.device import resolve_device
 from repro_torch.models.families import get_family
 from repro_torch.serving import Request, ServeEngine
-from repro_torch.serving.vision import resolve_device
 
 
 def main(argv=None) -> None:

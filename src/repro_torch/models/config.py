@@ -4,9 +4,10 @@
 ``wkv_impl`` picks the chunked WKV of the RWKV family: ``"cuda"`` (the
 hand-written kernel for a CUDA tensor, its plain twin for a CPU tensor),
 ``"plain"`` (the plain chunked twin on any device) or ``"naive"`` (the
-per-token scan).  ``scan_layers`` and ``remat`` are kept as fields so a
-reference config reads the same; they mean nothing here (the layers run
-in a Python loop, and serving keeps no activations for a backward).
+per-token scan).  ``remat`` recomputes each layer in the backward
+(`torch.utils.checkpoint`, when grad mode is on).  ``scan_layers`` is
+kept as a field so a reference config reads the same; it means nothing
+here (the layers run in a Python loop).
 """
 from __future__ import annotations
 

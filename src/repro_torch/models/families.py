@@ -3,13 +3,14 @@ against; port of `repro.models.families` for the families the port has.
 
 Every family exposes:
   init(generator, cfg)                          → (params, logical_axes)
+  loss(params, batch, cfg)                      → (scalar loss, metrics dict)
   init_decode_state(cfg, B, T, abstract, device) → (state, logical_axes)
   decode(params, state, tokens, pos, cfg)       → (logits, new_state)
   batch_keys                                    → input names the family consumes
   prefill (optional)                            → fused multi-token prefill
 
-The loss comes with LM training.  Families the reference has and the port
-does not yet raise "not ported yet".
+Families the reference has and the port does not yet raise "not ported
+yet".
 """
 from __future__ import annotations
 
@@ -17,8 +18,34 @@ import dataclasses
 import functools
 from typing import Callable
 
+import torch
+
 from repro_torch.models import rwkv6
 from repro_torch.models.config import ModelConfig
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token CE.  logits (B,S,V) fp32; targets (B,S) int."""
+    lse = torch.logsumexp(logits, dim=-1)
+    true = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = lse - true
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+def _accuracy(logits, targets):
+    # argmax takes the first index at ties, as jnp.argmax does
+    return (logits.argmax(-1) == targets).to(logits.dtype).mean()
+
+
+def _rwkv_loss(params, batch, cfg: ModelConfig):
+    logits, aux, _ = rwkv6.forward(params, batch["tokens"], cfg)
+    ce = cross_entropy(logits, batch["targets"])
+    return ce + aux, {"ce": ce, "aux": aux,
+                      "acc": _accuracy(logits.detach(), batch["targets"])}
 
 
 def _rwkv_decode_state(cfg, batch, max_len, abstract=False, device=None):
@@ -28,6 +55,7 @@ def _rwkv_decode_state(cfg, batch, max_len, abstract=False, device=None):
 @dataclasses.dataclass(frozen=True)
 class Family:
     init: Callable
+    loss: Callable
     decode: Callable
     init_decode_state: Callable
     batch_keys: tuple[str, ...]
@@ -41,8 +69,9 @@ class Family:
 
 
 FAMILIES: dict[str, Family] = {
-    "rwkv": Family(rwkv6.init_rwkv, rwkv6.decode_step, _rwkv_decode_state,
-                   ("tokens", "targets"), prefill=rwkv6.prefill_step),
+    "rwkv": Family(rwkv6.init_rwkv, _rwkv_loss, rwkv6.decode_step,
+                   _rwkv_decode_state, ("tokens", "targets"),
+                   prefill=rwkv6.prefill_step),
 }
 #: The reference's other families, still to port.
 NOT_PORTED = ("dense", "moe", "rglru", "vlm", "encdec")

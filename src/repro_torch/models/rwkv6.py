@@ -10,19 +10,29 @@ receptance.
 
 The chunked forward (prefill) runs the chunk-parallel WKV, per
 ``cfg.wkv_impl``: the CUDA kernel B7 on the card (`kernels/rwkv_wkv`).
+The WKV is differentiable (`kernels/rwkv_wkv/ops.py`: B7 forward, the
+closed-form backward), so `forward` trains; with ``cfg.remat`` each layer
+runs under `torch.utils.checkpoint` when grad mode is on, as the
+reference's ``jax.checkpoint`` (which saves the dots; here the whole
+layer is recomputed, with the same values).
 Decode carries O(1) state, (token-shift vector, WKV matrix) per layer,
 and runs the per-token scan over its one token, in plain PyTorch as the
 reference runs it in XLA.  Parameters stay stacked with a leading
-``n_layers`` axis; `forward` loops over the layers and indexes ``[i]``.
-State leaves keep batch at axis 1.
+``n_layers`` axis; `forward` unbinds them once and loops over the layers
+(one unbind, so a backward stacks each leaf's gradient once instead of
+adding a full-size zero tensor a layer).  State leaves keep batch at
+axis 1.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.adc import clip
 from repro_torch.kernels.rwkv_wkv import ops as wkv_ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.init_utils import KeyGen, make, split_tree
@@ -162,7 +172,8 @@ def _time_mix(p: dict, x, prev_tok, wkv_state, cfg: ModelConfig, *,
     g = F.silu(xg @ p["wg"])
     omega = p["w0"].reshape(1, 1, h, hd) + (torch.tanh(xw @ p["w_lora_a"])
                                             @ p["w_lora_b"]).reshape(b, s, h, hd)
-    lw = torch.clamp(-torch.exp(omega.float()), LOG_DECAY_MIN, -1e-6)
+    # `clip`, not `torch.clamp`: the reference's gradient at a tie
+    lw = clip(-torch.exp(omega.float()), LOG_DECAY_MIN, -1e-6)
 
     rf, kf, vf = (a.float() for a in (r, k, v))
     if lengths is not None:
@@ -254,11 +265,18 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     if state is None:
         state, _ = init_rwkv_state(cfg, b, device=device)
     x = embed_tokens(params["embed"], tokens, cfg)
+    layer_fn = functools.partial(_layer, cfg=cfg, chunked=chunked,
+                                 lengths=lengths)
+    if cfg.remat and torch.is_grad_enabled():
+        # the layer draws no random numbers: no RNG state to keep
+        layer_fn = functools.partial(checkpoint, layer_fn, use_reentrant=False,
+                                     preserve_rng_state=False)
+    per_layer = tree_map(lambda a: a.unbind(0), params["layers"])
     sts = []
     for i in range(cfg.n_layers):
-        lp = tree_map(lambda a: a[i], params["layers"])
+        lp = tree_map(lambda a: a[i], per_layer)
         st = tree_map(lambda a: a[i], state)
-        x, ns = _layer(x, lp, st, cfg, chunked=chunked, lengths=lengths)
+        x, ns = layer_fn(x, lp, st)
         sts.append(ns)
     new_states = {key: torch.stack([ns[key] for ns in sts]) for key in sts[0]}
     logits = lm_head(params["embed"], x, cfg)

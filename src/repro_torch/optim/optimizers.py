@@ -3,8 +3,14 @@
 
 SGD with momentum is the paper's training recipe (§5.1, momentum 0.9);
 AdamW is the LM-pretraining default.  Optimizer state mirrors the
-parameter tree; updates return new trees and leave their inputs as they
-are.  ``step`` is a host int, and ``lr_fn(step)`` a float.
+parameter tree.  ``update_in_place`` is the counterpart of the
+reference's donated step (``donate_argnums``): it writes the new moments
+and parameters into the state's and the parameters' own tensors, leaf by
+leaf, and scales the gradients in place to clip them; its peak is the
+resident trees plus a few temporaries of one leaf.  ``update`` returns
+new trees and leaves its inputs as they are: it runs ``update_in_place``
+on copies, so the two give the same bits.  ``step`` is a host int, and
+``lr_fn(step)`` a float.
 
 Unlike `torch.optim.SGD`, `sgd` applies weight decay outside the momentum
 buffer, as the reference does.
@@ -24,6 +30,8 @@ class Optimizer:
     init: Callable[[Any], Any]
     #: (grads, state, params, step) -> (params, state)
     update: Callable[..., tuple[Any, Any]]
+    #: (grads, state, params, step) -> None; writes state and params
+    update_in_place: Callable[..., None]
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -33,11 +41,42 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """(grads scaled to a global norm of at most ``max_norm``, the norm)."""
+def _copy(tree):
+    return tree_map(lambda x: x.detach().clone(), tree)
+
+
+def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+    """Scale the gradients in place to a global norm of at most
+    ``max_norm``; the norm before."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
-    return tree_map(lambda g: g * scale, grads), norm
+    for g in tree_leaves(grads):
+        g.mul_(scale)
+    return norm
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """(copies of the grads scaled as `clip_by_global_norm_` scales them,
+    the norm)."""
+    grads = _copy(grads)
+    return grads, clip_by_global_norm_(grads, max_norm)
+
+
+def _functional(update_in_place: Callable) -> Callable:
+    """``update``: `update_in_place` on copies of its inputs."""
+    def update(grads, state, params, step):
+        grads, state, params = _copy(grads), _copy(state), _copy(params)
+        update_in_place(grads, state, params, step)
+        return params, state
+    return update
+
+
+def _write(p: torch.Tensor, step_: torch.Tensor) -> None:
+    """p ← (float32(p) − step_) in p's dtype; ``step_`` is consumed."""
+    if p.dtype == torch.float32:
+        p.sub_(step_)
+    else:
+        p.copy_((p.to(torch.float32) - step_).to(p.dtype))
 
 
 def sgd(lr_fn: Callable, momentum: float = 0.9, clip_norm: float | None = None,
@@ -46,19 +85,20 @@ def sgd(lr_fn: Callable, momentum: float = 0.9, clip_norm: float | None = None,
         return {"mu": tree_map(
             lambda p: torch.zeros_like(p, dtype=torch.float32), params)}
 
-    def update(grads, state, params, step):
+    @torch.no_grad()
+    def update_in_place(grads, state, params, step):
         if clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, clip_norm)
+            clip_by_global_norm_(grads, clip_norm)
         lr = lr_fn(step)
-        mu = tree_map(lambda m, g: momentum * m + g.to(torch.float32),
-                      state["mu"], grads)
-        new_params = tree_map(
-            lambda p, m: (p.to(torch.float32) - lr * (
-                m + weight_decay * p.to(torch.float32))).to(p.dtype),
-            params, mu)
-        return new_params, {"mu": mu}
 
-    return Optimizer(init, update)
+        def leaf(p, m, g):
+            m.mul_(momentum).add_(g.to(torch.float32))
+            t = p.to(torch.float32) * weight_decay
+            _write(p, torch.add(m, t, out=t).mul_(lr))
+
+        tree_map(leaf, params, state["mu"], grads)
+
+    return Optimizer(init, _functional(update_in_place), update_in_place)
 
 
 def adamw(lr_fn: Callable, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
@@ -68,24 +108,26 @@ def adamw(lr_fn: Callable, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             return torch.zeros_like(p, dtype=torch.float32)
         return {"m": tree_map(z, params), "v": tree_map(z, params)}
 
-    def update(grads, state, params, step):
+    @torch.no_grad()
+    def update_in_place(grads, state, params, step):
         if clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, clip_norm)
+            clip_by_global_norm_(grads, clip_norm)
         lr = lr_fn(step)
         t = float(step) + 1.0
-        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.to(torch.float32),
-                     state["m"], grads)
-        v = tree_map(lambda v_, g: b2 * v_ + (1 - b2)
-                     * torch.square(g.to(torch.float32)), state["v"], grads)
         mh_scale = 1.0 / (1.0 - b1**t)
         vh_scale = 1.0 / (1.0 - b2**t)
 
-        def upd(p, m_, v_):
-            u = (m_ * mh_scale) / (torch.sqrt(v_ * vh_scale) + eps)
-            pf = p.to(torch.float32)
-            return (pf - lr * (u + weight_decay * pf)).to(p.dtype)
+        def leaf(p, m, v, g):
+            g = g.to(torch.float32)
+            m.mul_(b1).add_((1 - b1) * g)
+            v.mul_(b2).add_(torch.square(g).mul_(1 - b2))
+            del g
+            den = torch.sqrt(v * vh_scale).add_(eps)
+            u = (m * mh_scale).div_(den)
+            del den
+            u.add_(p.to(torch.float32) * weight_decay)
+            _write(p, u.mul_(lr))
 
-        new_params = tree_map(upd, params, m, v)
-        return new_params, {"m": m, "v": v}
+        tree_map(leaf, params, state["m"], state["v"], grads)
 
-    return Optimizer(init, update)
+    return Optimizer(init, _functional(update_in_place), update_in_place)

@@ -29,11 +29,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.families import get_family, validate_slot_layout
 from repro_torch.obs.metrics import counted_lru_cache
 from repro_torch.serving.scheduler import ScheduledRequest, SlotEngine
-from repro_torch.serving.vision import _tree_to, resolve_device
+from repro_torch.serving.vision import _tree_to
 from repro_torch.tree import tree_leaves
 
 #: Status ``submit`` returns for a request with a prompt token outside

@@ -35,6 +35,7 @@ from repro_torch.core.bn_fold import deploy_params
 from repro_torch.core.p2m_conv import premix_deploy
 from repro_torch.core.pixel_model import PixelModel, default_pixel_model
 from repro_torch.core.quant import QuantSpec, quantize_deploy
+from repro_torch.device import resolve_device
 from repro_torch.models.mobilenetv2 import MNV2Config, apply_mnv2
 from repro_torch.serving.scheduler import ScheduledRequest, SlotEngine
 
@@ -52,17 +53,6 @@ class VisionRequest(ScheduledRequest):
     def batch_wall_us(self) -> float:
         """Wall-clock of the (single) launch that served this request."""
         return self.launch_wall_us
-
-
-def resolve_device(device) -> torch.device:
-    """The serving device: the GPU unless the caller names another.  With
-    no GPU present, asking for it raises; nothing moves to the CPU by
-    itself."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run on the CPU")
-    return device
 
 
 def _tree_to(tree, device):

@@ -60,6 +60,7 @@ from repro_torch.core.bandwidth import (
 from repro_torch.core.bn_fold import deploy_params
 from repro_torch.core.p2m_conv import deploy_conv_blocks, premix_deploy
 from repro_torch.core.quant import QuantSpec, quantize_deploy
+from repro_torch.device import resolve_device
 from repro_torch.kernels.p2m_conv.gated import p2m_conv_fused_gated
 from repro_torch.models.mobilenetv2 import (
     MNV2Config,
@@ -68,7 +69,7 @@ from repro_torch.models.mobilenetv2 import (
 )
 from repro_torch.obs.metrics import counted_lru_cache
 from repro_torch.serving.scheduler import ScheduledRequest, SlotEngine
-from repro_torch.serving.vision import _tree_to, resolve_device
+from repro_torch.serving.vision import _tree_to
 from repro_torch.video.delta import DeltaGate, DeltaGateConfig
 from repro_torch.video.detect import (
     DetectConfig,

@@ -20,7 +20,11 @@ autograd of the plain twin in float64 within 1e-4 of the largest value.  The chu
 its plain twin within 1e-4 of the largest |plain| (fp32 sums over up to
 64 terms and exps in another order, as the reference holds its own
 kernel), and keeps a masked row's state bit for bit; two launches, and
-inputs at an unaligned offset, give the same bits.
+inputs at an unaligned offset, give the same bits.  Under autograd
+(`ops.wkv`: B7 forward, the closed-form backward) its outputs and six
+gradients are held to autograd of the plain twin in float64 within 1e-4
+of the largest value; an LM train step launches B7 twice a layer with
+remat, once without, and its loss is within 1e-5 of the plain WKV's.
 """
 import numpy as np
 import pytest
@@ -30,7 +34,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.configs.p2m_vww import SMOKE
 from repro_torch.core.p2m_conv import P2MConvConfig, apply_p2m_conv_deploy
 from repro_torch.core.pixel_model import default_pixel_model
-from repro_torch.data import SyntheticVWW
+from repro_torch.data import SyntheticLMDataset, SyntheticVWW
 from repro_torch.kernels.p2m_conv import (
     backward,
     conv,
@@ -1103,3 +1107,79 @@ def test_bad_prompt_token_fails_alone_on_the_card(cuda):
         assert [r.uid for r in done] == [0]
         done = eng.run([make(2, good)], on_undrained="raise")
         assert [r.uid for r in done] == [0, 2]  # the context is sound
+
+
+# ------------------------------------------------------ LM training (B7 under autograd)
+
+
+@pytest.mark.parametrize("b,s,h,d", [(8, 64, 40, 64), (2, 37, 3, 64),
+                                     (2, 20, 2, 16)])
+def test_wkv_function_grads_match_plain_autograd_f64(cuda, b, s, h, d):
+    """`ops.wkv(impl="cuda")` (B7 forward, the closed-form backward in
+    float32) against autograd of the plain twin in float64, from a
+    nonzero state with both cotangents: outputs and six gradients within
+    1e-4 of the largest |float64 value|; B7 launches once."""
+    from repro_torch.kernels.rwkv_wkv import ops as wkv_ops
+
+    ins = _wkv_case(b, s, h, d, cuda, seed=5)
+    gen = torch.Generator(cuda).manual_seed(6)
+    dy = torch.randn((b, s, h, d), generator=gen, device=cuda)
+    ds = torch.randn((b, h, d, d), generator=gen, device=cuda)
+    live = [a.clone().requires_grad_() for a in ins]
+    before = wkv_kernel.wkv_fused.launches
+    y, sf = wkv_ops.wkv(*live)
+    grads = torch.autograd.grad((y, sf), live, (dy, ds))
+    assert wkv_kernel.wkv_fused.launches == before + 1
+    live64 = [a.double().requires_grad_() for a in ins]
+    y64, s64 = wkv_chunked_plain(*live64)
+    want = torch.autograd.grad((y64, s64), live64, (dy.double(), ds.double()))
+    for got, ref in zip((y, sf, *grads), (y64, s64, *want)):
+        err = float((got.double() - ref).abs().max())
+        assert err <= WKV_TOL * float(ref.abs().max()), (err, ref.shape)
+
+
+def test_lm_train_step_on_the_card_launches_b7_per_layer(cuda):
+    """One SMOKE AdamW step on the card: B7 runs twice a layer with remat
+    (forward and recompute), once without; the loss is finite and within
+    1e-5 of the step with the plain WKV; the state is written in place."""
+    from repro_torch.optim import adamw, constant
+    from repro_torch.train import TrainState, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_smoke_config("rwkv6-3b").replace(dtype=torch.float32)
+    params, _ = get_family(cfg).init(torch.Generator(cuda).manual_seed(0),
+                                     cfg)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in SyntheticLMDataset(
+        vocab=cfg.vocab, seq_len=40, batch=4).batch_at(0).items()}
+    opt = adamw(constant(1e-3))
+    losses = {}
+    for remat, impl, want in ((True, "cuda", 2 * cfg.n_layers),
+                              (False, "cuda", cfg.n_layers),
+                              (True, "plain", 0)):
+        p = tree_map(torch.clone, params)
+        state = TrainState(p, opt.init(p))
+        leaf = tree_leaves(p)[0]
+        before = wkv_kernel.wkv_fused.launches
+        state, m = make_train_step(cfg.replace(remat=remat, wkv_impl=impl),
+                                   opt)(state, batch)
+        torch.cuda.synchronize()
+        assert wkv_kernel.wkv_fused.launches - before == want
+        assert tree_leaves(state["params"])[0] is leaf
+        assert state["step"] == 1 and np.isfinite(float(m["loss"]))
+        losses[(remat, impl)] = float(m["loss"])
+    assert losses[(True, "cuda")] == losses[(False, "cuda")]
+    assert abs(losses[(True, "cuda")] - losses[(True, "plain")]) <= \
+        1e-5 * abs(losses[(True, "plain")])
+
+
+def test_lm_launcher_on_the_card(cuda):
+    """`launch/train.py` with no ``--device`` trains on the card."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.tree import tree_leaves
+
+    trainer = launch_train.main(["--arch", "rwkv6-3b", "--smoke", "--steps",
+                                 "2", "--batch", "2", "--seq", "24"])
+    assert trainer.state["step"] == 2
+    assert all(np.isfinite(h["loss"]) for h in trainer.history)
+    assert {t.device.type for t in tree_leaves(trainer.state["params"])} \
+        == {"cuda"}
