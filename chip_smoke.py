@@ -79,6 +79,30 @@ no result:
    at a near-tie (top-2 margin within that spread); then `SessionEngine`:
    4 sessions of 3 turns on 4 slots, all complete, B7 on every turn
    prefill;
+5h. the front door: phase 5c's LM (the same params; `ServeEngine`, 8
+   slots, max_len 512, chunk 64, ``tick_cost`` 4), a `ReplicaPool` of two
+   full-width `VisionEngine`s on phase 5's params and a gated
+   `StreamEngine` (4 slots, phase 5b's head) behind one traced
+   `FrontDoor`; phase 5c's 16 requests, phase 5's 24 frames at its
+   arrivals and phase 5b's six streams one a tick, on the door's clock.
+   (a) every request completes, no engine down, the trace valid, B1 + B2
+   launches = the replicas' (each launched), B5 = the stream engine's
+   ticks, B7 = 32 a prefill tick and none on decode; probabilities within
+   1e-4 of phase 5's, boxes and scores within 1e-5 of phase 5b's gated
+   run, tokens phase 5c's up to a near-tie (how many bit for bit
+   printed), the latency summaries on the door's clock and the wall time;
+   (b) every ``tick_cost`` 1: the event-driven and the lockstep door give
+   the same completions and byte-identical traces; (c) the traffic again
+   under `SMOKE_PLAN` on every engine plus one explicit launch-error tick,
+   NaN tick and stuck uid an engine: it drains, every uid lands on one
+   ledger, every uid poisoned by NaN or a stuck slot fails, a launch
+   victim fails or is cleared by its retry, every launch fault is an
+   injected one, every completed request equals (a)'s, and each
+   injector's summary; (d) (a)'s tick-domain export equals, byte for
+   byte, that of a door of the same shape on the CPU (SMOKE LM, 40²
+   vision and streams); (e) ``python -m repro_torch.launch.serve --arch
+   rwkv6-3b --mixed ...`` in a subprocess exits 0 with the front-door
+   summary;
 5f. the port's repaired faults: a prompt token ``padded_vocab`` fails
    only its request (SMOKE rwkv), and the engine serves the next; every
    kernel wrapper raises on an input that requires grad under grad mode;
@@ -136,7 +160,8 @@ no result:
    parts; B7 at the serving tick's shape (with its launch geometry:
    blocks, threads, shared memory and its one ring depth), and the LM
    engine's time per prefill and per decode tick with their parts;
-10. one JSON line ``{"kernels": [...]}`` (B1-B7);
+10. one JSON line ``{"kernels": [...]}`` (B1-B7; the door's launches
+    of B1/B2, B5 and B7 under ``launches_by_path["door"]``);
 11. the card's name and power limit as nvidia-smi gives them, then the
     last line ``{"ok": true, "device": {...}}``.
 
@@ -145,7 +170,10 @@ no result:
 B1's and B6's sources and their checks and times alone (`b1b6_only`),
 each on this tree or, copied into its root, on an older one;
 ``python3 chip_smoke.py --lm-train`` phase 1, the build of ``wkv.cu``
-and phase 5g alone (`lm_train_only`).
+and phase 5g alone (`lm_train_only`); ``python3 chip_smoke.py --door``
+phase 1, the builds of ``p2m_conv.cu`` and ``wkv.cu``, phase 5c and
+phase 5h alone, with phase 5's and 5b's main runs as its references
+(`door_only`).
 """
 from __future__ import annotations
 
@@ -1049,6 +1077,26 @@ def check_gated_kernel(torch, np, dev, imgs, wrows, shift, rand_case, adc):
     return stream_err
 
 
+def stream_frames(image_size: int) -> list:
+    """Phase 5b's six hold-2 streams (the 6-frame one noisy)."""
+    from repro_torch.video import SyntheticVideo
+
+    return [SyntheticVideo(image_size=image_size, n_frames=n, hold=2,
+                           seed=SEED + i,
+                           noise=0.02 if i == NOISY_STREAM else 0.0).frames()
+            for i, n in enumerate(STREAM_LENGTHS)]
+
+
+def stream_head(torch, dev, cfg):
+    """Phase 5b's detection head: `DetectConfig()` from seed 1."""
+    from repro_torch.models.mobilenetv2 import head_out_channels
+    from repro_torch.video import DetectConfig, init_detect_head
+
+    return init_detect_head(torch.Generator().manual_seed(SEED + 1),
+                            head_out_channels(cfg), DetectConfig(),
+                            device=dev)
+
+
 def stream_path(torch, np, dev, params, bn):
     """Phase 5b: the streaming path at full width.  ``StreamEngine`` on
     `CONFIG` with 4 slots (`STREAM_MAX_SLOTS`), the port's detection head
@@ -1060,26 +1108,13 @@ def stream_path(torch, np, dev, params, bn):
     from repro_torch.core.bandwidth import frame_output_bits
     from repro_torch.core.p2m_conv import deploy_conv_blocks
     from repro_torch.kernels.p2m_conv import conv, gated
-    from repro_torch.models.mobilenetv2 import head_out_channels
     from repro_torch.serving import drive
-    from repro_torch.video import (
-        DeltaGateConfig,
-        DetectConfig,
-        StreamEngine,
-        StreamRequest,
-        SyntheticVideo,
-        init_detect_head,
-    )
+    from repro_torch.video import DeltaGateConfig, StreamEngine, StreamRequest
 
     t0 = time.perf_counter()
-    frames = [SyntheticVideo(image_size=CONFIG.image_size, n_frames=n,
-                             hold=2, seed=SEED + i,
-                             noise=0.02 if i == NOISY_STREAM else 0.0).frames()
-              for i, n in enumerate(STREAM_LENGTHS)]
+    frames = stream_frames(CONFIG.image_size)
     setup_s = time.perf_counter() - t0
-    det = init_detect_head(torch.Generator().manual_seed(SEED + 1),
-                           head_out_channels(CONFIG), DetectConfig(),
-                           device=dev)
+    det = stream_head(torch, dev, CONFIG)
 
     def requests():
         return [StreamRequest(uid=i, frames=f) for i, f in enumerate(frames)]
@@ -1499,6 +1534,46 @@ def check_wkv_kernel(torch, np, dev):
     return serve_err, serve_inputs
 
 
+def lm_instrument(torch, eng, first=None):
+    """Record each step's kind and B7 launches, and the top-2 margin
+    of the logits behind each emitted token; keep the first chunk
+    step's inputs and logits in ``first``."""
+    from repro_torch.kernels.rwkv_wkv import kernel
+    from repro_torch.tree import tree_map
+
+    ticks, margins, now = [], {}, {}
+    steps = {"prefill": eng._chunk_step, "decode": eng._step}
+
+    def wrap(kind):
+        def step(params_, state, *args):
+            if kind == "prefill" and first is not None and not first:
+                first["inputs"] = (tree_map(torch.clone, state),
+                                   *(a.clone() for a in args))
+            before = kernel.wkv_fused.launches
+            last, new_state = steps[kind](params_, state, *args)
+            ticks.append((kind, kernel.wkv_fused.launches - before))
+            top = torch.topk(last, 2, dim=-1).values
+            now["margin"] = (top[:, 0] - top[:, 1]).cpu().numpy()
+            if kind == "prefill" and first is not None \
+                    and "last" not in first:
+                first["last"] = last.clone()
+            return last, new_state
+        return step
+
+    eng._chunk_step, eng._step = wrap("prefill"), wrap("decode")
+    absorb = eng._absorb
+
+    def absorb_and_record(i, req, result):
+        n = len(eng._gen(req))
+        finished = absorb(i, req, result)
+        if len(eng._gen(req)) > n:
+            margins.setdefault(req.uid, []).append(float(now["margin"][i]))
+        return finished
+
+    eng._absorb = absorb_and_record
+    return ticks, margins
+
+
 def lm_path(torch, np, dev, cfg):
     """Phase 5c: serve ``cfg`` (rwkv6-3b, float32, random weights from
     ``SEED``) through `ServeEngine` with chunked prefill and through
@@ -1539,47 +1614,11 @@ def lm_path(torch, np, dev, cfg):
                         arrival_tick=t)
                 for i, (p, t) in enumerate(zip(prompts, arrivals))]
 
-    def instrument(eng, first=None):
-        """Record each step's kind and B7 launches, and the top-2 margin
-        of the logits behind each emitted token; keep the first chunk
-        step's inputs and logits in ``first``."""
-        ticks, margins, now = [], {}, {}
-        steps = {"prefill": eng._chunk_step, "decode": eng._step}
-
-        def wrap(kind):
-            def step(params_, state, *args):
-                if kind == "prefill" and first is not None and not first:
-                    first["inputs"] = (tree_map(torch.clone, state),
-                                       *(a.clone() for a in args))
-                before = kernel.wkv_fused.launches
-                last, new_state = steps[kind](params_, state, *args)
-                ticks.append((kind, kernel.wkv_fused.launches - before))
-                top = torch.topk(last, 2, dim=-1).values
-                now["margin"] = (top[:, 0] - top[:, 1]).cpu().numpy()
-                if kind == "prefill" and first is not None \
-                        and "last" not in first:
-                    first["last"] = last.clone()
-                return last, new_state
-            return step
-
-        eng._chunk_step, eng._step = wrap("prefill"), wrap("decode")
-        absorb = eng._absorb
-
-        def absorb_and_record(i, req, result):
-            n = len(eng._gen(req))
-            finished = absorb(i, req, result)
-            if len(eng._gen(req)) > n:
-                margins.setdefault(req.uid, []).append(float(now["margin"][i]))
-            return finished
-
-        eng._absorb = absorb_and_record
-        return ticks, margins
-
     def serve(run_cfg, first=None):
         eng = ServeEngine(params, run_cfg, max_batch=LM_MAX_BATCH,
                           max_len=LM_MAX_LEN, prefill_chunk=LM_CHUNK,
                           device=dev)
-        ticks, margins = instrument(eng, first)
+        ticks, margins = lm_instrument(torch, eng, first)
         torch.cuda.synchronize()
         kernel.wkv_fused.launches = 0
         t0 = time.perf_counter()
@@ -1764,7 +1803,7 @@ def lm_path(torch, np, dev, cfg):
               for t in range(3)] for i in range(4)]
     sess = SessionEngine(params, cfg, max_batch=4, max_len=LM_MAX_LEN,
                          prefill_chunk=LM_CHUNK, device=dev)
-    s_ticks, _ = instrument(sess)
+    s_ticks, _ = lm_instrument(torch, sess)
     torch.cuda.synchronize()
     kernel.wkv_fused.launches = 0
     t0 = time.perf_counter()
@@ -1787,8 +1826,10 @@ def lm_path(torch, np, dev, cfg):
           f"{max(len(t) for ts in turns for t in ts)} tokens) in "
           f"{sess.stats['launches']} ticks ({n_prefill} prefill), "
           f"{time.perf_counter() - t0:.2f} s; B7 launches {s_launches}")
-    return {"params": params, "cfg": cfg, "requests": requests, "launches": launches + s_launches,
-            "serve_launches": launches, "session_launches": s_launches}
+    return {"params": params, "cfg": cfg, "requests": requests,
+            "launches": launches + s_launches, "serve_launches": launches,
+            "session_launches": s_launches,
+            "outputs": {r.uid: r.output for r in done}, "margins": margins}
 
 
 LM_TRAIN_STEPS = 3  # full width and depth, through launch/train.py
@@ -2743,6 +2784,404 @@ def check_faults(torch, np, dev):
           f"requires grad under grad mode, and launch under no_grad")
 
 
+VISION_ARRIVALS = [0] * 8 + [1] * 3 + [2] * 6 + [4] * 7  # phase 5's
+DOOR_LM_COST = 4  # front-door ticks one LM engine tick costs (phase 5h)
+DOOR_STREAM_TOL = 1e-5  # boxes, scores: phase 5h against phase 5b
+DOOR_LAUNCHER = ["--arch", LM_ARCH, "--mixed", "--prefill-chunk",
+                 str(LM_CHUNK), "--vision-requests", "12", "--video-streams",
+                 "2", "--vision-replicas", "2", "--lm-tick-cost",
+                 str(DOOR_LM_COST)]
+# Chaos (5h (c)): SMOKE_PLAN on every engine (one seed each) plus one
+# explicit launch-error tick, NaN tick and stuck uid an engine, one retry
+# a launch, and a watchdog above the engine's longest request (LM: 3
+# prefill + 16 decode ticks; a frame 1 tick; a stream 12).  An explicit
+# launch tick raises on every attempt, so it fails its whole cohort; a
+# drawn one is keyed by attempt and may clear on the retry.
+DOOR_CHAOS = {  # engine: (launch tick, NaN tick, stuck uid, watchdog)
+    "lm": (3, 6, 13, 48),
+    "vision[0]": (1, 2, 1009, 3),
+    "vision[1]": (2, 1, 1009, 3),
+    "stream": (4, 7, 2003, 16),
+}
+
+
+def door_requests(lm_reqs, images, frames) -> list:
+    """Phase 5h's traffic on the door's clock: phase 5c's LM requests,
+    phase 5's 24 frames (uids 1000-1023) at its arrivals, phase 5b's
+    streams (uids 2000-2005) one a tick."""
+    from repro_torch.serving import VisionRequest
+    from repro_torch.video import StreamRequest
+
+    return (list(lm_reqs)
+            + [VisionRequest(uid=1000 + i, image=images[i], arrival_tick=t)
+               for i, t in enumerate(VISION_ARRIVALS)]
+            + [StreamRequest(uid=2000 + i, frames=f, arrival_tick=i)
+               for i, f in enumerate(frames)])
+
+
+def build_door(torch, dev, lm_params, lm_cfg, vparams, vbn, vcfg, det, *,
+               lm_cost, lockstep=False, chaos=False):
+    """A door of phase 5h's shape on ``dev``: ``lm`` a `ServeEngine`
+    (8 slots, max_len 512, chunk 64, ``tick_cost`` ``lm_cost``),
+    ``vision`` a `ReplicaPool` of two `VisionEngine`s (microbatch 8,
+    8-bit deploy stem), ``stream`` a gated `StreamEngine` (4 slots),
+    traced.  Returns the door, its tracer, the LM's tick record and
+    margins (`lm_instrument`) and the injectors (``chaos``)."""
+    import dataclasses
+
+    from repro_torch.launch.serve import FrontDoor
+    from repro_torch.obs import Tracer
+    from repro_torch.serving import (
+        SMOKE_PLAN,
+        FaultInjector,
+        ReplicaPool,
+        ServeEngine,
+        VisionEngine,
+    )
+    from repro_torch.video import DeltaGateConfig, StreamEngine
+
+    injectors = {}
+
+    def core(name, seed):
+        if not chaos:
+            return {}
+        launch, nan, stuck, watchdog = DOOR_CHAOS[name]
+        injectors[name] = FaultInjector(dataclasses.replace(
+            SMOKE_PLAN, seed=SEED + seed, launch_error_ticks=(launch,),
+            nan_ticks=(nan,), stuck_uids=(stuck,)))
+        return {"faults": injectors[name], "launch_retries": 1,
+                "max_serve_ticks": watchdog}
+
+    lm = ServeEngine(lm_params, lm_cfg, max_batch=LM_MAX_BATCH,
+                     max_len=LM_MAX_LEN, prefill_chunk=LM_CHUNK,
+                     tick_cost=lm_cost, device=dev, **core("lm", 21))
+    vision = ReplicaPool(*[VisionEngine(vparams, vbn, vcfg, device=dev,
+                                        **core(f"vision[{k}]", 22 + k))
+                           for k in range(2)])
+    stream = StreamEngine(vparams, vbn, vcfg, det,
+                          gate=DeltaGateConfig(threshold=0.0), device=dev,
+                          **core("stream", 24))
+    tracer = Tracer()
+    door = FrontDoor(lockstep=lockstep, tracer=tracer, lm=lm, vision=vision,
+                     stream=stream)
+    ticks, margins = lm_instrument(torch, lm)
+    return door, tracer, ticks, margins, injectors
+
+
+def check_door_launches(tag, door, counts, lm_ticks, n_layers) -> int:
+    """The kernels' counts against the engines' own: B1 + B2 = the two
+    replicas' launches (each launched), B5 = the stream engine's, B7 =
+    32 a prefill tick and none on a decode tick.  Returns the prefill
+    ticks."""
+    pool, stream = door.engines["vision"], door.engines["stream"]
+    per = [rep.stats["launches"] for rep in pool.replicas]
+    stem = counts["p2m_conv_fused"] + counts["p2m_conv_fused_pipelined"]
+    check(stem == sum(per) and all(n > 0 for n in per),
+          f"5h {tag}: B1 + B2 launched {stem} times, the replicas {per}")
+    b5 = (counts["p2m_conv_fused_gated"]
+          + counts["p2m_conv_fused_gated_pipelined"])
+    check(b5 == stream.stats["launches"] and b5 > 0,
+          f"5h {tag}: B5 launched {b5} times in the stream engine's "
+          f"{stream.stats['launches']} ticks")
+    prefill = sum(k == "prefill" for k, _ in lm_ticks)
+    check(all(n == (n_layers if k == "prefill" else 0) for k, n in lm_ticks)
+          and counts["wkv_fused"] == n_layers * prefill and prefill > 0,
+          f"5h {tag}: B7 launched {counts['wkv_fused']} times over "
+          f"{prefill} prefill ticks")
+    return prefill
+
+
+def check_door_outputs(np, tag, door, ref, margins) -> dict:
+    """Each completed request's output against ``ref`` (uid → LM tokens,
+    vision probabilities or stream frame outputs; ``ref["margins"]``
+    the LM run's top-2 margins): vision within ``PROBS_TOL``, stream
+    boxes and scores within ``DOOR_STREAM_TOL``, LM tokens equal up to a
+    near-tie (phase 5c's rule).  Returns how many were bit for bit."""
+    same = {"lm": 0, "vision": 0, "stream": 0}
+    worst = {"vision": 0.0, "stream": 0.0}
+    for name, r in door.completed:
+        want = ref[r.uid]
+        if name == "vision":
+            d = float(np.abs(r.probs - want).max())
+            worst["vision"] = max(worst["vision"], d)
+            check(d <= PROBS_TOL, f"5h {tag}: frame {r.uid}'s probs differ "
+                  f"by {d}")
+            same["vision"] += bool(np.array_equal(r.probs, want))
+        elif name == "stream":
+            check(len(r.frame_outputs) == len(want),
+                  f"5h {tag}: stream {r.uid} has {len(r.frame_outputs)} "
+                  f"frames")
+            d = max(max(float(np.abs(b - wb).max()),
+                        float(np.abs(s - ws).max()))
+                    for (b, s), (wb, ws) in zip(r.frame_outputs, want))
+            worst["stream"] = max(worst["stream"], d)
+            check(d <= DOOR_STREAM_TOL, f"5h {tag}: stream {r.uid}'s boxes "
+                  f"or scores differ by {d}")
+            same["stream"] += all(
+                np.array_equal(b, wb) and np.array_equal(s, ws)
+                for (b, s), (wb, ws) in zip(r.frame_outputs, want))
+        else:
+            if r.output == want:
+                same["lm"] += 1
+                continue
+            j = next(i for i, (x, y) in enumerate(zip(r.output, want))
+                     if x != y)
+            m = min(margins[r.uid][j], ref["margins"][r.uid][j])
+            print(f"[5h] {tag}: request {r.uid}'s tokens differ first at "
+                  f"output {j}, top-2 margin {m:.3e} (limit "
+                  f"{LM_LOGIT_TOL})")
+            check(m <= LM_LOGIT_TOL, f"5h {tag}: request {r.uid}'s tokens "
+                  f"differ at output {j}, not a near-tie (margin {m})")
+    return {"bitwise": same, "worst": worst}
+
+
+def door_summary_lines(door) -> list[str]:
+    """One line an engine (and a replica) of the door's latency summary,
+    tick figures on the door's clock."""
+    lines = []
+
+    def line(label, s):
+        lines.append(
+            f"{label}: served {s['served']}, launches {s['launches']}, "
+            f"queue ticks mean {s['mean_queue_ticks']:.3f} p50 "
+            f"{s['p50_queue_ticks']:.1f} p95 {s['p95_queue_ticks']:.1f} "
+            f"p99 {s['p99_queue_ticks']:.1f}, serve ticks mean "
+            f"{s['mean_serve_ticks']:.3f} p50 {s['p50_serve_ticks']:.1f} "
+            f"p95 {s['p95_serve_ticks']:.1f} p99 {s['p99_serve_ticks']:.1f},"
+            f" mean launch {s['mean_launch_us'] / 1e3:.3f} ms")
+
+    for name, s in door.latency_summary().items():
+        line(name, s)
+        for k, rep in enumerate(s.get("replicas", ())):
+            line(f"{name}[{k}]", rep)
+    return lines
+
+
+def door_path(torch, np, dev, lm, vision, stream_ref, smi):
+    """Phase 5h: the front door on the card.  ``lm``: phase 5c's result
+    (its params, requests, tokens and margins); ``vision``: phase 5's
+    params, BN state, images and probabilities by uid; ``stream_ref``:
+    phase 5b's gated frame outputs by uid.  (a) LM, vision and video
+    traffic through one `FrontDoor`, fault-free and traced; (b) every
+    ``tick_cost`` 1: the event-driven door and the lockstep door; (c) the
+    traffic again under seeded fault injection; (d) (a)'s tick-domain
+    export against a door of the same shape on the CPU; (e) the
+    launcher's ``--mixed`` in a subprocess.  Returns the kernels'
+    launches in (a)-(c); no engine outlives it."""
+    import gc
+    import os
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.p2m_vww import CONFIG, SERVE_MAX_BATCH
+    from repro_torch.data import SyntheticVWW
+    from repro_torch.kernels.p2m_conv import conv, gated
+    from repro_torch.kernels.rwkv_wkv import kernel as wkv_kernel
+    from repro_torch.launch.serve import _make_vision_engine
+    from repro_torch.models.families import get_family
+    from repro_torch.obs import validate_trace_events
+    from repro_torch.serving import Request, drive
+
+    cfg = lm["cfg"]
+    frames = stream_frames(CONFIG.image_size)
+    det = stream_head(torch, dev, CONFIG)
+    ref = {**{1000 + uid: p for uid, p in vision["probs"].items()},
+           **{2000 + uid: o for uid, o in stream_ref.items()},
+           **lm["outputs"], "margins": lm["margins"]}
+
+    def requests():
+        return door_requests(lm["requests"](), vision["images"], frames)
+
+    def run(tag, lm_cost, **kw):
+        door, tracer, ticks, margins, inj = build_door(
+            torch, dev, lm["params"], cfg, vision["params"], vision["bn"],
+            CONFIG, det, lm_cost=lm_cost, **kw)
+        reqs = requests()
+        torch.cuda.synchronize()
+        reset_stem_launches(conv)
+        reset_gated_launches(gated)
+        wkv_kernel.wkv_fused.launches = 0
+        t0 = time.perf_counter()
+        drive(door, reqs, on_undrained="raise")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {**stem_launches(conv), **gated_launches(gated),
+                  "wkv_fused": wkv_kernel.wkv_fused.launches}
+        prefill = check_door_launches(tag, door, counts, ticks, cfg.n_layers)
+        return {"door": door, "tracer": tracer, "margins": margins,
+                "inj": inj, "reqs": reqs, "counts": counts,
+                "seconds": seconds, "prefill": prefill, "ticks": ticks}
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    # (a) fault-free and traced; nothing injected before this check
+    a = run("(a)", DOOR_LM_COST)
+    door = a["door"]
+    n_req = len(a["reqs"])
+    check(len(door.completed) == n_req and not door.down,
+          f"5h (a): {len(door.completed)} of {n_req} completed, down "
+          f"{door.down}")
+    for name, eng in door.engines.items():
+        check(not eng.failed and not eng.evicted and not eng.rejected,
+              f"5h (a): {name} failed {len(eng.failed)}, evicted "
+              f"{len(eng.evicted)}, rejected {len(eng.rejected)}")
+    events = a["tracer"].trace_events()
+    problems = validate_trace_events(events)
+    check(problems == [], f"5h (a): trace problems {problems[:5]}")
+    a_out = check_door_outputs(np, "(a)", door, ref, a["margins"])
+    export = a["tracer"].export()
+    decode = sum(k == "decode" for k, _ in a["ticks"])
+    print(f"[5h] (a) {n_req} requests (16 LM, 24 frames, 6 streams) through "
+          f"one FrontDoor (lm tick_cost {DOOR_LM_COST}, vision a pool of 2, "
+          f"stream) in {door.tick} door ticks, {a['seconds']:.3f} s wall "
+          f"on {smi}; none failed, evicted or rejected, no engine down; "
+          f"{len(events)} trace events, valid; kernel launches "
+          f"{a['counts']} (replicas "
+          f"{[r.stats['launches'] for r in door.engines['vision'].replicas]}"
+          f", stream ticks {door.engines['stream'].stats['launches']}, LM "
+          f"{a['prefill']} prefill and {decode} decode ticks)")
+    print(f"[5h] (a) outputs vs phases 5, 5b, 5c: bit for bit "
+          f"{a_out['bitwise']} of 16 LM, 24 frames, 6 streams; largest "
+          f"difference vision {a_out['worst']['vision']:.3e}, stream "
+          f"{a_out['worst']['stream']:.3e}")
+    for line in door_summary_lines(door):
+        print(f"[5h] (a) latency, door clock: {line}")
+    out = {"seconds": a["seconds"], "door_ticks": door.tick,
+           "counts": dict(a["counts"])}
+    a_ref = {**{r.uid: (r.probs if n == "vision" else
+                        r.frame_outputs if n == "stream" else r.output)
+                for n, r in door.completed}, "margins": a["margins"]}
+    del door, a
+
+    # (b) every tick_cost 1: event-driven == lockstep
+    b = [run(f"(b) {kind}", 1, lockstep=kind == "lockstep")
+         for kind in ("event", "lockstep")]
+    order = [[(n, r.uid) for n, r in x["door"].completed] for x in b]
+    exports = [x["tracer"].export() for x in b]
+    check(order[0] == order[1] and exports[0] == exports[1]
+          and all(len(o) == n_req for o in order),
+          "5h (b): the event-driven and the lockstep doors differ")
+    print(f"[5h] (b) every tick_cost 1: event-driven and lockstep doors "
+          f"give the same {len(order[0])} completions in "
+          f"{b[0]['door'].tick} door ticks and byte-identical traces "
+          f"({len(exports[0])} bytes); {b[0]['seconds']:.3f} s and "
+          f"{b[1]['seconds']:.3f} s wall")
+    out["lockstep_counts"] = [dict(x["counts"]) for x in b]
+    del b, exports
+
+    # (c) chaos
+    c = run("(c)", DOOR_LM_COST, chaos=True)
+    door, inj = c["door"], c["inj"]
+    engines = {"lm": [door.engines["lm"]],
+               "vision": door.engines["vision"].replicas,
+               "stream": [door.engines["stream"]]}
+    poisoned = set().union(*(i.poisoned_uids for i in inj.values()))
+    by_uid = {}
+    for name, engs in engines.items():
+        for e in engs:
+            for kind in ("completed", "failed", "evicted", "rejected"):
+                for r in getattr(e, kind):
+                    by_uid.setdefault(r.uid, []).append(kind)
+    want_uids = sorted(r.uid for r in c["reqs"])
+    check(sorted(by_uid) == want_uids
+          and all(len(v) == 1 for v in by_uid.values()),
+          f"5h (c): not every uid on exactly one ledger: "
+          f"{ {u: v for u, v in by_uid.items() if len(v) != 1} }")
+    failed = {u for u, v in by_uid.items() if v == ["failed"]}
+    # what poisoned each uid, from the trace's inject instants
+    kinds: dict = {}
+    for ev in c["tracer"].trace_events():
+        if ev["name"] == "inject" and ev["args"].get("uid") is not None:
+            kinds.setdefault(ev["args"]["uid"], set()).add(ev["args"]["kind"])
+    hard = {u for u, k in kinds.items() if k != {"launch"}}
+    cleared = poisoned - hard - failed
+    check(set(kinds) == poisoned and hard <= failed
+          and all(by_uid[u] == ["completed"] for u in cleared),
+          f"5h (c): poisoned {sorted(poisoned)} by {kinds}, failed "
+          f"{sorted(failed)}")
+    names = ["lm", "vision[0]", "vision[1]", "stream"]
+    flat = [door.engines["lm"], *door.engines["vision"].replicas,
+            door.engines["stream"]]
+    for name, e in zip(names, flat):
+        check(e.stats["launch_faults"] == inj[name].counts["launch"],
+              f"5h (c): {name} counted {e.stats['launch_faults']} launch "
+              f"faults, its injector raised {inj[name].counts['launch']}")
+    problems = validate_trace_events(c["tracer"].trace_events())
+    check(problems == [], f"5h (c): trace problems {problems[:5]}")
+    # every completed request, a launch victim cleared by its retry too
+    # (the raise came before the launch), equals (a)'s
+    c_out = check_door_outputs(np, "(c)", door, a_ref, c["margins"])
+    survivors = sum(1 for v in by_uid.values() if v == ["completed"])
+    print(f"[5h] (c) SMOKE_PLAN + one launch-error tick, NaN tick and stuck "
+          f"uid an engine, one retry: drained in {door.tick} door ticks "
+          f"({c['seconds']:.3f} s); {survivors} completed, {len(failed)} "
+          f"failed ({sorted(failed)}), every uid on one ledger; poisoned "
+          f"by NaN or stuck {len(hard)}, all failed; by launch alone "
+          f"{len(poisoned) - len(hard)}, {len(cleared)} of them cleared by "
+          f"the retry and completed; every launch fault an injected one; "
+          f"every completed request equals (a)'s (bit for bit "
+          f"{c_out['bitwise']}); down {door.down}")
+    for name in names:
+        print(f"[5h] (c) injector {name}: {inj[name].summary()}")
+    out["chaos_counts"] = dict(c["counts"])
+    del door, c, inj, flat, engines
+
+    # (d) the same door's shape on the CPU: the same tick-domain bytes
+    cpu = torch.device("cpu")
+    smoke = get_smoke_config(LM_ARCH).replace(dtype=torch.float32)
+    s_params, _ = get_family(smoke).init(torch.Generator().manual_seed(SEED),
+                                         smoke)
+    small, vcfg = _make_vision_engine(max_batch=SERVE_MAX_BATCH, device=cpu)
+    cdoor, ctracer, _, _, _ = build_door(
+        torch, cpu, s_params, smoke, small._params, small._bn, vcfg,
+        stream_head(torch, cpu, vcfg), lm_cost=DOOR_LM_COST)
+    imgs = SyntheticVWW(image_size=vcfg.image_size,
+                        batch=len(VISION_ARRIVALS),
+                        seed=SEED + 1).batch_at(0)["images"]
+    lm_reqs = [Request(uid=r.uid, prompt=[t % smoke.vocab for t in r.prompt],
+                       max_new_tokens=r.max_new_tokens,
+                       arrival_tick=r.arrival_tick)
+               for r in lm["requests"]()]
+    t0 = time.perf_counter()
+    drive(cdoor, door_requests(lm_reqs, imgs, stream_frames(vcfg.image_size)),
+          on_undrained="raise")
+    cpu_s = time.perf_counter() - t0
+    same = ctracer.export() == export
+    check(same, "5h (d): the card's tick-domain export differs from the "
+          "CPU door's")
+    print(f"[5h] (d) a door of the same shape on the CPU (SMOKE LM, 40² "
+          f"vision and streams, {cpu_s:.2f} s): tick-domain export equal "
+          f"to the card's byte for byte ({len(export)} bytes, no argument "
+          f"left out)")
+    del cdoor, ctracer, small, s_params
+
+    # (e) the launcher in a subprocess on the card
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *DOOR_LAUNCHER],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(SRC)})
+    lines = proc.stdout.strip().splitlines()
+    first = next((k for k, ln in enumerate(lines)
+                  if ln.startswith("front door: ")), None)
+    lines = lines[first:first + 5] if first is not None else []
+    check(proc.returncode == 0 and len(lines) == 5 and lines[0].startswith(
+        "front door: 8 LM requests (128 tokens) + 12 frames + 2 video "
+        "streams") and "on cuda" in lines[0]
+          and [ln.split(":")[0].strip() for ln in lines[1:]]
+          == ["stream", "lm", "vision", "stream"],
+          f"5h (e): launcher exited {proc.returncode}: {proc.stdout} "
+          f"{proc.stderr[-2000:]}")
+    print(f"[5h] (e) python -m repro_torch.launch.serve "
+          f"{' '.join(DOOR_LAUNCHER)}: exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for line in lines:
+        print(f"[5h] (e)   {line}")
+    torch.backends.cudnn.deterministic = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def conv2d_yardstick(torch, images, wrows, k, s):
     """One cuDNN conv over the power stack [x, x², x³] (NCHW) with the
     premixed weights, which computes the fused conv's raw accumulation:
@@ -2956,6 +3395,72 @@ def lm_train_only(torch, np, dev) -> int:
     return 0
 
 
+def door_launches(door, name) -> int:
+    """A kernel's launches in phase 5h's three runs on the card."""
+    return (door["counts"][name] + door["chaos_counts"][name]
+            + sum(c[name] for c in door["lockstep_counts"]))
+
+
+def door_only(torch, np, dev) -> int:
+    """``chip_smoke.py --door``: phase 1, the builds of ``p2m_conv.cu``
+    and ``wkv.cu``, phase 5c and phase 5h alone.  Phase 5h's vision and
+    stream references are phases 5's and 5b's main runs, made here the
+    way those phases make them."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.p2m_vww import CONFIG
+    from repro_torch.data import SyntheticVWW
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.p2m_conv import conv
+    from repro_torch.kernels.rwkv_wkv import kernel as wkv_kernel
+    from repro_torch.models.mobilenetv2 import init_mnv2
+    from repro_torch.serving import VisionEngine, VisionRequest, drive
+    from repro_torch.video import DeltaGateConfig, StreamEngine, StreamRequest
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = smi_line()
+    print(f"[1] card: {smi}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
+    with ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(conv.build_p2m_conv),
+                    pool.submit(wkv_kernel.build_wkv)]:
+            job.result()
+    for name in ("p2m_conv", "wkv"):
+        print(f"[2] {name}.cu: nvcc {_build.BUILD_INFO[name][0]:.2f} s")
+    params, bn = init_mnv2(torch.Generator().manual_seed(SEED), CONFIG,
+                           device=dev)
+    images = SyntheticVWW(image_size=CONFIG.image_size,
+                          batch=len(VISION_ARRIVALS),
+                          seed=SEED + 1).batch_at(0)["images"]
+    engine = VisionEngine(params, bn, CONFIG, device=dev)
+    drive(engine, [VisionRequest(uid=i, image=images[i], arrival_tick=t)
+                   for i, t in enumerate(VISION_ARRIVALS)],
+          on_undrained="raise")
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    stream = StreamEngine(params, bn, CONFIG, stream_head(torch, dev, CONFIG),
+                          gate=DeltaGateConfig(threshold=0.0), device=dev)
+    drive(stream, [StreamRequest(uid=i, frames=f) for i, f in
+                   enumerate(stream_frames(CONFIG.image_size))],
+          on_undrained="raise")
+    torch.backends.cudnn.deterministic = False
+    check(len(engine.completed) == len(VISION_ARRIVALS)
+          and len(stream.completed) == len(STREAM_LENGTHS),
+          "the references did not complete")
+    print(f"[5] {len(engine.completed)} frames and [5b] "
+          f"{len(stream.completed)} streams served alone, the door's "
+          "references")
+    lm = lm_path(torch, np, dev,
+                 get_config(LM_ARCH).replace(dtype=torch.float32))
+    out = door_path(torch, np, dev, lm,
+                    {"params": params, "bn": bn, "images": images,
+                     "probs": {r.uid: r.probs for r in engine.completed}},
+                    {r.uid: r.frame_outputs for r in stream.completed}, smi)
+    print(json.dumps(out))
+    print(smi)
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2974,6 +3479,8 @@ def main() -> int:
         return b1b6_only(torch, np, torch.device("cuda"))
     if sys.argv[1:] == ["--lm-train"]:
         return lm_train_only(torch, np, torch.device("cuda"))
+    if sys.argv[1:] == ["--door"]:
+        return door_only(torch, np, torch.device("cuda"))
 
     from repro_torch.configs.p2m_vww import (
         CONFIG,
@@ -3112,11 +3619,10 @@ def main() -> int:
     n_req = 24
     data = SyntheticVWW(image_size=size, batch=n_req, seed=SEED + 1)
     images = data.batch_at(0)["images"]
-    arrivals = [0] * 8 + [1] * 3 + [2] * 6 + [4] * 7
 
     def vision_requests():
         return [VisionRequest(uid=i, image=images[i], arrival_tick=t)
-                for i, t in enumerate(arrivals)]
+                for i, t in enumerate(VISION_ARRIVALS)]
 
     reset_stem_launches(conv)
     t0 = time.perf_counter()
@@ -3133,6 +3639,7 @@ def main() -> int:
     check(launches == engine.stats["launches"] and launches > 0,
           f"kernel launches {serve_launches} != engine launches "
           f"{engine.stats['launches']}")
+    vision_probs = {r.uid: r.probs for r in done}
     probs = np.stack([r.probs for r in done])
     check(probs.shape == (n_req, CONFIG.num_classes)
           and bool(np.isfinite(probs).all()), "probs not finite")
@@ -3174,6 +3681,11 @@ def main() -> int:
 
     lm = lm_path(torch, np, dev,
                  get_config(LM_ARCH).replace(dtype=torch.float32))
+    door = door_path(
+        torch, np, dev, lm,
+        {"params": params, "bn": bn, "images": images,
+         "probs": vision_probs},
+        {r.uid: r.frame_outputs for r in stream["gated"].completed}, smi)
     check_faults(torch, np, dev)
     lm_train = lm_train_path(torch, np, dev, lm)
 
@@ -3296,7 +3808,8 @@ def main() -> int:
             "serve_forced": pass_launches["B1" if name == "p2m_conv_fused"
                                           else "B2"][name],
             "train": train["launches"][name],
-            "stream": stream["where_launches"][name]}
+            "stream": stream["where_launches"][name],
+            "door": door_launches(door, name)}
         check(sum(stem_paths[name].values()) > 0,
               f"{name} launched no time on the main paths")
     kernels = [{
@@ -3337,20 +3850,26 @@ def main() -> int:
             "max_abs_err": bwd_err[name],
             **bwd_rows[name],
         })
-    b5 = sum(stream["launches"][name] for name in gated_launches(gated))
-    check(b5 > 0, "p2m_conv_fused_gated launched no time on the main paths")
+    b5_stream = sum(stream["launches"][name]
+                    for name in gated_launches(gated))
+    b5_door = sum(door_launches(door, name)
+                  for name in gated_launches(gated))
+    b5 = b5_stream + b5_door
+    check(b5_stream > 0 and b5_door > 0,
+          "p2m_conv_fused_gated launched no time on a main path")
     kernels.append({
         "name": "p2m_conv_fused_gated",
         "route": "cuda",
         "source": "src/repro_torch/kernels/p2m_conv/csrc/p2m_conv.cu",
         "replaces": "src/repro/kernels/p2m_conv/gated.py:221",
-        # the gated stem runs on the stream path (its default on the card),
-        # on the body of the tuner's depth: the ring (launches_pipelined)
-        # or B1's
+        # the gated stem runs on the stream path (its default on the card)
+        # and the door's stream engine, on the body of the tuner's depth:
+        # the ring (launches_pipelined) or B1's
         "launches": b5,
         "launches_pipelined":
-            stream["launches"]["p2m_conv_fused_gated_pipelined"],
-        "launches_by_path": {"stream": b5},
+            stream["launches"]["p2m_conv_fused_gated_pipelined"]
+            + door_launches(door, "p2m_conv_fused_gated_pipelined"),
+        "launches_by_path": {"stream": b5_stream, "door": b5_door},
         "max_abs_err": gated_err,
         **gated_row,
     })
@@ -3371,9 +3890,12 @@ def main() -> int:
         "source": "src/repro_torch/kernels/rwkv_wkv/csrc/wkv.cu",
         "replaces": "src/repro/kernels/rwkv_wkv/kernel.py:108",
         # the LM path: ServeEngine's and SessionEngine's prefill ticks;
-        # the LM train steps (forward and recompute, phase 5g (c))
-        "launches": lm["launches"] + lm_train["launches"],
+        # the door's LM engine (phase 5h); the LM train steps (forward
+        # and recompute, phase 5g (c))
+        "launches": (lm["launches"] + door_launches(door, "wkv_fused")
+                     + lm_train["launches"]),
         "launches_by_path": {"lm": lm["launches"],
+                             "door": door_launches(door, "wkv_fused"),
                              "lm_train": lm_train["launches"]},
         "max_abs_err": wkv_err,
         **wkv_row,

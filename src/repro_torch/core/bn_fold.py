@@ -46,3 +46,18 @@ def fold_error(params: dict, state: dict, cfg: P2MConvConfig,
     folded = p2m_matmul_plain(sample_patches, w_fold, b, model, cfg.adc,
                               mode="raw")
     return float(torch.max(torch.abs(exact - folded)))
+
+
+def init_deploy_form(generator: torch.Generator, cfg: P2MConvConfig, *,
+                     device) -> dict:
+    """Beyond-paper: initialize directly in deploy parameterization
+    (trainable w ∈ [−1,1] and shift), so no fold approximation exists.
+    ``w`` is drawn from ``generator`` (a CPU generator: the same seed
+    gives the same weights on any device)."""
+    k = cfg.kernel
+    fan_in = k * k * cfg.in_channels
+    w = (torch.rand((fan_in, cfg.out_channels), generator=generator)
+         * 2.0 - 1.0) * (3.0 / fan_in) ** 0.5
+    return {"w": w.to(device),
+            "shift": torch.zeros(cfg.out_channels, dtype=torch.float32,
+                                 device=device)}

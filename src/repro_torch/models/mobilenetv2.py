@@ -15,6 +15,8 @@ Parameter trees carry conv weights as OIHW (depthwise ``(C, 1, 3, 3)``)
 and the P²M ``theta`` and ``fc`` in the reference's own layout;
 `repro_torch.compat` converts a reference tree.  Backbone convs are
 PyTorch's own (`F.conv2d`), as the reference leaves them to XLA.
+``layer_census`` and ``peak_activation_bytes`` are the reference's
+analytics (paper Table 2 / Fig. 8), pure Python on the config.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.adc import clip
+from repro_torch.core.energy import ConvSpec
 from repro_torch.core.p2m_conv import (
     P2MConvConfig,
     apply_p2m_conv_deploy,
@@ -294,3 +297,96 @@ def apply_mnv2(
     x = x.mean(dim=(1, 2))
     logits = x @ params["fc"]["w"] + params["fc"]["b"]
     return logits, {**stem_state, **new_state}
+
+
+# ------------------------------------------------------------------ census
+
+
+def layer_census(cfg: MNV2Config, *, include_in_pixel: bool = False) -> list[ConvSpec]:
+    """ConvSpec list for MAdds / delay / peak-memory analytics.
+
+    For the P²M variant the in-pixel first layer is excluded by default
+    (it runs in the sensor, not the SoC) — ``include_in_pixel=True`` adds
+    it back for ablations.
+    """
+    census: list[ConvSpec] = []
+    i = cfg.image_size
+
+    if cfg.variant == "p2m":
+        hw = cfg.p2m.out_spatial(i)
+        if include_in_pixel:
+            census.append(
+                ConvSpec(cfg.p2m.kernel, 3, cfg.p2m.out_channels, hw, hw)
+            )
+        cin = cfg.p2m.out_channels
+    else:
+        hw = (i + 1) // 2
+        c0 = int(round(cfg.first_channels * cfg.width))
+        census.append(ConvSpec(3, 3, c0, hw, hw))
+        cin = c0
+
+    for t, c, n, s in cfg.block_schedule():
+        for idx in range(n):
+            stride = s if idx == 0 else 1
+            hidden = cin * t
+            if t != 1:
+                census.append(ConvSpec(1, cin, hidden, hw, hw))
+            out_hw = -(-hw // stride)
+            census.append(ConvSpec(3, hidden, hidden, out_hw, out_hw, groups=hidden))
+            census.append(ConvSpec(1, hidden, c, out_hw, out_hw))
+            hw = out_hw
+            cin = c
+
+    ch = head_out_channels(cfg)
+    census.append(ConvSpec(1, cin, ch, hw, hw))
+    census.append(ConvSpec(1, ch, cfg.num_classes, 1, 1))
+    return census
+
+
+def peak_activation_bytes(cfg: MNV2Config, *, fused_blocks: bool) -> int:
+    """Peak activation memory, int8 elements (VWW-challenge accounting).
+
+    ``fused_blocks=False``: every conv output is a materialized buffer and
+    the peak is the largest single tensor — the t× expansion buffers
+    dominate.  This reproduces the paper's *baseline* column exactly
+    (7.53 / 1.2 / 0.311 MB = the 96-channel expansion at stage-2 res).
+
+    ``fused_blocks=True``: inverted-residual blocks stream per-channel
+    (TFLite-micro style) so expansions are never materialized; the peak is
+    the largest (block input + block output) pair.  This reproduces the
+    paper's *P²M-custom* column exactly (0.30 / 0.049 / 0.013 MB =
+    8ch input + 16ch output at the P²M resolution).  The paper's Table 2
+    mixes these two conventions across its columns — defensible (the P²M
+    model targets fused MCU kernels; the baseline doesn't fit an MCU under
+    either convention) but worth making explicit.  See EXPERIMENTS.md.
+    """
+    peak = 0
+    i = cfg.image_size
+    if cfg.variant == "p2m":
+        hw = cfg.p2m.out_spatial(i)
+        cin = cfg.p2m.out_channels
+        peak = max(peak, hw * hw * cin)
+    else:
+        hw = (i + 1) // 2
+        cin = int(round(cfg.first_channels * cfg.width))
+        peak = (
+            max(peak, i * i * 3, hw * hw * cin)
+            if not fused_blocks
+            else max(peak, i * i * 3 + hw * hw * cin)
+        )
+
+    for t, c, n, s in cfg.block_schedule():
+        for idx in range(n):
+            stride = s if idx == 0 else 1
+            hidden = cin * t
+            out_hw = -(-hw // stride)
+            if fused_blocks:
+                peak = max(peak, hw * hw * cin + out_hw * out_hw * c)
+            else:
+                peak = max(peak, hw * hw * hidden, out_hw * out_hw * hidden,
+                           out_hw * out_hw * c)
+            hw = out_hw
+            cin = c
+    ch = head_out_channels(cfg)
+    peak = max(peak, hw * hw * cin + hw * hw * ch if fused_blocks else hw * hw * ch)
+    return peak

@@ -382,8 +382,12 @@ class SlotEngine:
 
     def _on_launch_fault(self, exc: Exception) -> None:
         """Called once per ``_launch`` failure (before any retry).  The
-        port's vision engine keeps the default: a failing kernel surfaces
-        as failed requests, never as answers from another conv path."""
+        port's engines keep no degradation ladder: a failing kernel
+        surfaces as failed requests (retry, then quarantine), never as
+        answers from another conv path.  A fault that escapes ``step``
+        itself meets the next boundary, the front door's
+        ``_step_engine`` (or a `ReplicaPool`'s), which halts the
+        engine and names it in ``down``."""
 
     # -------------------------------------------------------------- API
 

@@ -200,7 +200,9 @@ def test_port_imports_without_jax_or_reference():
         import repro_torch.core.bn_fold
         import repro_torch.core.quant
         import repro_torch.data
+        import repro_torch.core.energy
         import repro_torch.kernels.p2m_conv
+        import repro_torch.launch.serve
         import repro_torch.obs
         import repro_torch.serving
         bad = [m for m, v in sys.modules.items() if v is not None and (

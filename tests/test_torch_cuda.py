@@ -1183,3 +1183,90 @@ def test_lm_launcher_on_the_card(cuda):
     assert all(np.isfinite(h["loss"]) for h in trainer.history)
     assert {t.device.type for t in tree_leaves(trainer.state["params"])} \
         == {"cuda"}
+
+
+# ------------------------------------------------------------- front door
+
+
+@pytest.mark.parametrize("chaos", [False, True], ids=["clean", "faults"])
+def test_front_door_on_the_card_launches_what_its_engines_count(cuda, chaos):
+    """A small door on the card (SMOKE LM, a pool of two 40² vision
+    engines, a gated stream engine): no engine down; B1 + B2 launches =
+    the replicas' launches, B5 = the stream engine's, B7 = 2 a prefill
+    tick; with faults, every launch fault is an injected one."""
+    import dataclasses
+
+    from repro_torch.launch.serve import FrontDoor, _make_vision_engine
+    from repro_torch.serving import SMOKE_PLAN, FaultInjector, ReplicaPool
+
+    cfg = get_smoke_config("rwkv6-3b").replace(dtype=torch.float32)
+    params, _ = get_family(cfg).init(torch.Generator().manual_seed(0), cfg)
+    small, vcfg = _make_vision_engine(device=cuda)
+    injectors = []
+
+    def core(seed):
+        if not chaos:
+            return {}
+        injectors.append(FaultInjector(dataclasses.replace(
+            SMOKE_PLAN, seed=seed, launch_error_ticks=(2,), nan_ticks=(3,))))
+        return {"faults": injectors[-1], "launch_retries": 1,
+                "max_serve_ticks": 40}
+
+    lm = ServeEngine(params, cfg, max_batch=4, max_len=128, prefill_chunk=16,
+                     tick_cost=2, device=cuda, **core(1))
+    prefill = []
+    chunk_step = lm._chunk_step
+
+    def counted_chunk(*a):
+        prefill.append(1)
+        return chunk_step(*a)
+
+    lm._chunk_step = counted_chunk
+    reps = [VisionEngine(small._params, small._bn, vcfg, max_batch=4,
+                         device=cuda, **core(2 + k)) for k in range(2)]
+    det = init_detect_head(torch.Generator().manual_seed(2),
+                           head_out_channels(vcfg), DetectConfig(),
+                           device=cuda)
+    stream = StreamEngine(small._params, small._bn, vcfg, det, max_streams=2,
+                          device=cuda, **core(4))
+    assert stream.stem_path == "gated"
+    door = FrontDoor(lm=lm, vision=ReplicaPool(*reps), stream=stream)
+    rng = np.random.default_rng(0)
+    imgs = SyntheticVWW(image_size=vcfg.image_size, batch=8).batch_at(0)[
+        "images"]
+    reqs = ([Request(uid=i, prompt=rng.integers(0, cfg.vocab,
+                                                 int(n)).tolist(),
+                     max_new_tokens=4, arrival_tick=i)
+             for i, n in enumerate((5, 20, 40, 9))]
+            + [VisionRequest(uid=100 + i, image=imgs[i], arrival_tick=i // 2)
+               for i in range(8)]
+            + [StreamRequest(uid=200 + i, frames=SyntheticVideo(
+                image_size=vcfg.image_size, n_frames=5, seed=i).frames(),
+                arrival_tick=i) for i in range(3)])
+    before = (conv.p2m_conv_fused.launches
+              + conv.p2m_conv_fused.launches_pipelined,
+              gated.p2m_conv_fused_gated.launches
+              + gated.p2m_conv_fused_gated.launches_pipelined,
+              wkv_kernel.wkv_fused.launches)
+    door.run(reqs, on_undrained="raise")
+    torch.cuda.synchronize()
+    after = (conv.p2m_conv_fused.launches
+             + conv.p2m_conv_fused.launches_pipelined,
+             gated.p2m_conv_fused_gated.launches
+             + gated.p2m_conv_fused_gated.launches_pipelined,
+             wkv_kernel.wkv_fused.launches)
+    stem, b5, b7 = (a - b for a, b in zip(after, before))
+    assert door.down == {}
+    assert stem == sum(r.stats["launches"] for r in reps) > 0
+    assert b5 == stream.stats["launches"] > 0
+    assert b7 == cfg.n_layers * len(prefill) and prefill
+    engines = [lm, *reps, stream]
+    if chaos:
+        assert [e.stats["launch_faults"] for e in engines] == \
+            [i.counts["launch"] for i in injectors]
+        assert sum(i.counts["launch"] for i in injectors) > 0
+        assert any(e.failed for e in engines)
+    else:
+        assert len(door.completed) == len(reqs)
+        assert all(not e.failed and not e.evicted and
+                   e.stats["launch_faults"] == 0 for e in engines)

@@ -285,9 +285,12 @@ def test_launcher_serves_smoke_on_the_cpu(capsys):
                        "--max-new-tokens", "4", "--prefill-chunk", "4"])
     out = capsys.readouterr().out
     assert "served 3 requests, 12 tokens" in out and "on cpu" in out
-    with pytest.raises(SystemExit, match="front door"):
-        launch_serve.main(["--arch", "rwkv6-3b", "--smoke", "--device",
-                           "cpu", "--mixed"])
+    launch_serve.main(["--arch", "rwkv6-3b", "--smoke", "--device", "cpu",
+                       "--requests", "2", "--max-new-tokens", "3",
+                       "--mixed", "--vision-requests", "2"])
+    out = capsys.readouterr().out
+    assert out.startswith("front door: 2 LM requests (6 tokens) + 2 frames "
+                          "+ 0 video streams")
 
 
 # ------------------------------------------------------------------ sessions
