@@ -123,6 +123,24 @@ no result:
    in-place AdamW); (d) at SMOKE, 4 steps with checkpoints, a fresh run
    that restores and takes 2 more: the losses equal one 6-step run's bit
    for bit;
+5i. the dense family (float32, random weights from a seed on the card,
+   TF32 off): (a) Llama-3.2-1B (`configs/llama3_2_1b.py::CONFIG`, 16
+   layers, d_model 2048, GQA 32/8, vocab 128256, tied) at full width and
+   depth through `ServeEngine` (8 slots, max_len 512, chunk 64, the
+   masked decode scan) on phase 5c's 16 requests: every request
+   completes, B7 launches no time; the first prefill tick's last-active
+   logits from the scan against `transformer.forward` (flash) in float32
+   and in float64 (one layer converted at a time), each float32 one
+   within 1e-3 of the largest |float64 logit|, the spread printed; each
+   request's tokens equal its own `greedy_generate` run's, or first
+   differ at a near-tie (top-2 margin within the spread); the prefill
+   and decode ticks warm beside the decode step's weight-read bound;
+   (b) StableLM-2-1.6B at full width and depth (LayerNorm, full MHA) and
+   (c) Qwen3-32B (8 of 64 layers: qk-norm, head_dim 128) and Qwen2-72B (4
+   of 80: QKV bias) at full width, 4 requests each, decode against
+   forward as in (a), each model freed before the next; (d) ``python -m
+   repro_torch.launch.serve --arch llama3.2-1b --mixed ...`` in a
+   subprocess exits 0 with the front-door summary, every engine launched;
 6. the training path: 6 steps of `make_vww_train_step` on `CONFIG` at
    batch 32 with the paper's `sgd(step_decay(...), momentum=0.9)`; every
    loss finite, each step launches B1 or B2 (as tuned), B3 and B4
@@ -173,7 +191,8 @@ each on this tree or, copied into its root, on an older one;
 and phase 5g alone (`lm_train_only`); ``python3 chip_smoke.py --door``
 phase 1, the builds of ``p2m_conv.cu`` and ``wkv.cu``, phase 5c and
 phase 5h alone, with phase 5's and 5b's main runs as its references
-(`door_only`).
+(`door_only`); ``python3 chip_smoke.py --dense`` phase 1, the build of
+``p2m_conv.cu`` and phase 5i alone (`dense_only`).
 """
 from __future__ import annotations
 
@@ -1574,6 +1593,29 @@ def lm_instrument(torch, eng, first=None):
     return ticks, margins
 
 
+def lm_traffic(np, vocab, n=LM_REQUESTS):
+    """Phase 5c's LM traffic: the first ``n`` of 16 SyntheticLMDataset
+    prompts of 24-150 tokens at arrivals 0 x6, 1 x2, 3 x4, 7 x4, 16 new
+    tokens each.  Returns (prompt lengths, a function that makes fresh
+    requests)."""
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(SEED + 12)
+    lengths = rng.integers(24, 151, LM_REQUESTS)[:n]
+    data = SyntheticLMDataset(vocab=vocab, seq_len=150, batch=LM_REQUESTS,
+                              seed=SEED).batch_at(0)
+    prompts = [data["tokens"][i, :k].tolist() for i, k in enumerate(lengths)]
+    arrivals = ([0] * 6 + [1] * 2 + [3] * 4 + [7] * 4)[:n]
+
+    def requests():
+        return [Request(uid=i, prompt=p, max_new_tokens=LM_NEW_TOKENS,
+                        arrival_tick=t)
+                for i, (p, t) in enumerate(zip(prompts, arrivals))]
+
+    return lengths, requests
+
+
 def lm_path(torch, np, dev, cfg):
     """Phase 5c: serve ``cfg`` (rwkv6-3b, float32, random weights from
     ``SEED``) through `ServeEngine` with chunked prefill and through
@@ -1584,7 +1626,6 @@ def lm_path(torch, np, dev, cfg):
     from repro_torch.models import rwkv6
     from repro_torch.models.families import get_family
     from repro_torch.serving import (
-        Request,
         ServeEngine,
         SessionEngine,
         SessionRequest,
@@ -1602,17 +1643,7 @@ def lm_path(torch, np, dev, cfg):
           f"{cfg.d_ff}, vocab {cfg.vocab}; {n_params} parameters "
           f"({4 * n_params / 1e9:.2f} GB fp32), initialized on the card in "
           f"{time.perf_counter() - t0:.2f} s")
-    rng = np.random.default_rng(SEED + 12)
-    lengths = rng.integers(24, 151, LM_REQUESTS)
-    data = SyntheticLMDataset(vocab=cfg.vocab, seq_len=150,
-                              batch=LM_REQUESTS, seed=SEED).batch_at(0)
-    prompts = [data["tokens"][i, :n].tolist() for i, n in enumerate(lengths)]
-    arrivals = [0] * 6 + [1] * 2 + [3] * 4 + [7] * 4
-
-    def requests():
-        return [Request(uid=i, prompt=p, max_new_tokens=LM_NEW_TOKENS,
-                        arrival_tick=t)
-                for i, (p, t) in enumerate(zip(prompts, arrivals))]
+    lengths, requests = lm_traffic(np, cfg.vocab)
 
     def serve(run_cfg, first=None):
         eng = ServeEngine(params, run_cfg, max_batch=LM_MAX_BATCH,
@@ -3182,6 +3213,311 @@ def door_path(torch, np, dev, lm, vision, stream_ref, smi):
     return out
 
 
+DENSE_ARCH = "llama3.2-1b"
+# Phase 5i (c): published widths, depth cut to fit float32 in 80 GB.
+DENSE_CUT = (("qwen3-32b", 8), ("qwen2-72b", 4))
+DENSE_REQUESTS = 4  # (b) and (c): the first four of phase 5c's prompts
+# Each of the float32 scan's and forward's first-prefill-tick logits
+# within this share of the largest |float64 logit| of the float64
+# forward.  The spread printed beside it (the largest difference among
+# the three) is the near-tie limit for the tokens.
+DENSE_F64_TOL = 1e-3
+DENSE_LAUNCHER = ["--arch", DENSE_ARCH, "--mixed", "--video-streams", "2",
+                  "--vision-replicas", "2", "--prefill-chunk", str(LM_CHUNK)]
+
+
+def forward_f64(torch, params, tokens, cfg):
+    """`transformer.forward` in float64 on the float32 ``params``, one
+    layer's weights converted at a time (embedding rows, each layer, the
+    head), so a cut Qwen2-72B (24 GB in float32) needs no float64 copy of
+    itself."""
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import lm_head
+    from repro_torch.tree import tree_map
+
+    cfg64 = cfg.replace(dtype=torch.float64)
+    b, s = tokens.shape
+    pos = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    x = params["embed"]["table"][tokens].double()
+    with torch.no_grad():
+        for i in range(cfg.n_layers):
+            lp = tree_map(lambda a: a[i].double(), params["layers"])
+            x = transformer._layer(x, lp, pos, cfg64, impl="flash")
+            del lp
+        head = "table" if cfg.tie_embeddings else "head"
+        emb = {"final_norm": tree_map(lambda a: a.double(),
+                                      params["embed"]["final_norm"]),
+               head: params["embed"][head].double()}
+        return lm_head(emb, x, cfg64)
+
+
+def dense_model(torch, np, dev, cfg, tag, n_requests, published=None):
+    """Serve ``cfg`` (float32, random weights from ``SEED`` on the card)
+    through `ServeEngine` (8 slots, max_len 512, chunk 64) on the first
+    ``n_requests`` of phase 5c's requests: every request completes, B7
+    launches no time; then the first prefill tick's last-active logits
+    from the masked decode scan against `transformer.forward` in float32
+    and in float64 on the same prompts.  Returns the engine, the params,
+    the outputs, the margins, the spread and the parameter count."""
+    from repro_torch.common.pytree import param_count
+    from repro_torch.kernels.rwkv_wkv import kernel
+    from repro_torch.models import transformer
+    from repro_torch.models.families import get_family
+    from repro_torch.serving import ServeEngine, drive
+
+    t0 = time.perf_counter()
+    params, _ = get_family(cfg).init(torch.Generator(dev).manual_seed(SEED),
+                                     cfg)
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    est = cfg.param_count_estimate()
+    depth = (f"{cfg.n_layers} of {published} layers run" if published
+             else f"{cfg.n_layers} layers")
+    print(f"[5i] {tag} {cfg.name}: {depth}, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.resolved_head_dim} ({cfg.n_kv_heads} "
+          f"KV), d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params} parameters "
+          f"in the tree, {est} by the reference's estimate (no norms or "
+          f"biases), {4 * n_params / 1e9:.2f} GB fp32, initialized on the "
+          f"card in {time.perf_counter() - t0:.2f} s")
+    lengths, requests = lm_traffic(np, cfg.vocab, n_requests)
+    eng = ServeEngine(params, cfg, max_batch=LM_MAX_BATCH, max_len=LM_MAX_LEN,
+                      prefill_chunk=LM_CHUNK, device=dev)
+    cache_gb = sum(a.numel() * a.element_size()
+                   for a in eng.state.values()) / 1e9
+    first = {}
+    ticks, margins = lm_instrument(torch, eng, first)
+    torch.cuda.synchronize()
+    kernel.wkv_fused.launches = 0
+    t0 = time.perf_counter()
+    drive(eng, requests(), on_undrained="raise")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    b7 = kernel.wkv_fused.launches
+    done = sorted(eng.completed, key=lambda r: r.uid)
+    check([r.uid for r in done] == list(range(n_requests))
+          and not eng.failed and not eng.evicted,
+          f"5i {tag}: completed {[r.uid for r in done]}, failed "
+          f"{len(eng.failed)}, evicted {len(eng.evicted)}")
+    check(all(len(r.output) == LM_NEW_TOKENS
+              and all(0 <= t < cfg.vocab for t in r.output) for r in done),
+          f"5i {tag}: outputs misshapen")
+    check(b7 == 0, f"5i {tag}: the dense path launched B7 {b7} times")
+    kinds = [k for k, _ in ticks]
+    print(f"[5i] {tag} ServeEngine: {len(done)} requests (prompts "
+          f"{min(lengths)}-{max(lengths)} tokens), "
+          f"{sum(len(r.output) for r in done)} tokens in "
+          f"{eng.stats['launches']} ticks ({kinds.count('prefill')} prefill, "
+          f"{kinds.count('decode')} decode), {seconds:.2f} s cold; KV cache "
+          f"{cache_gb:.3f} GB; B7 launches {b7}")
+
+    # The first prefill tick: every slot starts at position 0 from an
+    # empty cache, so the forward over the tick's tokens sees each
+    # slot's prompt prefix; a row's logits at its last active position
+    # are the scan's.
+    _, tokens, pos, n_active = first["inputs"]
+    rows = n_active > 0
+    check(bool((pos[rows] == 0).all()), f"5i {tag}: the first prefill tick "
+          "does not start at position 0")
+    idx = (n_active[rows] - 1).long()
+    sel = torch.arange(int(rows.sum()), device=dev)
+    with torch.no_grad():
+        f32 = transformer.forward(params, tokens[rows], cfg)[0][sel, idx]
+    f64 = forward_f64(torch, params, tokens[rows], cfg)[sel, idx]
+    last = {"scan": first["last"][rows].double(), "forward": f32.double(),
+            "f64": f64}
+    del first, f32
+    torch.cuda.empty_cache()
+    dist = {f"{a}-{b}": float((last[a] - last[b]).abs().max())
+            for a, b in (("scan", "forward"), ("scan", "f64"),
+                         ("forward", "f64"))}
+    scale = float(last["f64"].abs().max())
+    spread = max(dist.values())
+    print(f"[5i] {tag} first prefill tick ({int(rows.sum())} slots, "
+          f"{int(n_active.sum())} tokens), masked decode scan vs "
+          f"transformer.forward (flash): logits max abs differences (of "
+          f"{scale:.3e}): " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                         dist.items())
+          + f"; the float32 spread {spread:.3e} ({spread / scale:.2e} of "
+          f"the largest |logit|)")
+    check(max(dist["scan-f64"], dist["forward-f64"]) <= DENSE_F64_TOL * scale,
+          f"5i {tag}: float32 logits {dist} from float64, more than "
+          f"{DENSE_F64_TOL} of {scale}")
+    return {"engine": eng, "params": params, "cfg": cfg, "requests": requests,
+            "outputs": {r.uid: r.output for r in done}, "margins": margins,
+            "spread": spread, "n_params": n_params, "ticks": ticks,
+            "b7": b7}
+
+
+def greedy_margins(torch, engine_mod):
+    """Wrap the engine module's step factories so `greedy_generate`'s
+    steps record the top-2 margin of each row's logits, in call order.
+    Returns (the margins list, a function that restores the factories)."""
+    margins = []
+    real = engine_mod._decode_step_for, engine_mod._chunk_step_for
+
+    def wrapped(factory):
+        def make(*args):
+            step = factory(*args)
+
+            def run(*a):
+                last, state = step(*a)
+                top = torch.topk(last, 2, dim=-1).values
+                margins.append(float((top[:, 0] - top[:, 1]).min()))
+                return last, state
+            return run
+        return make
+
+    engine_mod._decode_step_for = wrapped(real[0])
+    engine_mod._chunk_step_for = wrapped(real[1])
+
+    def restore():
+        engine_mod._decode_step_for, engine_mod._chunk_step_for = real
+
+    return margins, restore
+
+
+def dense_path(torch, np, dev, smi):
+    """Phase 5i: the dense family on the card, float32, TF32 off.  (a)
+    Llama-3.2-1B at full width and depth: phase 5c's 16 requests through
+    `ServeEngine` (masked decode scan), decode against forward, each
+    request's tokens against its own `greedy_generate` run, and the
+    prefill and decode ticks warm beside the decode step's weight-read
+    bound; (b) StableLM-2-1.6B at full width and depth and (c) Qwen3-32B
+    and Qwen2-72B at full width, depth cut, 4 requests each, decode
+    against forward; (d) ``launch.serve --arch llama3.2-1b --mixed`` in a
+    subprocess.  Every model is freed before the next.  Returns what the
+    summary reads."""
+    import gc
+    import os
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ServeEngine, drive, greedy_generate
+    from repro_torch.serving import engine as engine_mod
+
+    out = {}
+    # (a)
+    cfg = get_config(DENSE_ARCH).replace(dtype=torch.float32)
+    a = dense_model(torch, np, dev, cfg, "(a)", LM_REQUESTS)
+    margins, restore = greedy_margins(torch, engine_mod)
+    same, t0 = 0, time.perf_counter()
+    try:
+        for req in a["requests"]():
+            del margins[:]
+            got = greedy_generate(a["params"], cfg, np.asarray([req.prompt]),
+                                  LM_NEW_TOKENS, max_len=LM_MAX_LEN)[0]
+            got = got.tolist()
+            served = a["outputs"][req.uid]
+            if got == served:
+                same += 1
+                continue
+            j = next(i for i, (x, y) in enumerate(zip(served, got))
+                     if x != y)
+            m = min(a["margins"][req.uid][j], margins[j])
+            print(f"[5i] (a) request {req.uid}: the engine's tokens differ "
+                  f"from greedy_generate's first at output {j} "
+                  f"({served[j]} vs {got[j]}), top-2 margin {m:.3e} (the "
+                  f"spread {a['spread']:.3e})")
+            check(m <= a["spread"], f"5i (a): request {req.uid} differs "
+                  f"at output {j}, not a near-tie (margin {m})")
+    finally:
+        restore()
+    print(f"[5i] (a) tokens: {same} of {LM_REQUESTS} requests bit for bit "
+          f"the tokens of their own greedy_generate run "
+          f"({time.perf_counter() - t0:.2f} s); the smallest top-2 margin "
+          f"behind an emitted token "
+          f"{min(min(v) for v in a['margins'].values()):.3e}")
+    # The engine per tick, warm: the same requests again.
+    eng = ServeEngine(a["params"], cfg, max_batch=LM_MAX_BATCH,
+                      max_len=LM_MAX_LEN, prefill_chunk=LM_CHUNK, device=dev)
+    launch = eng._launch
+    per = {"prefill": [], "decode": []}
+
+    def timed(active):
+        t0 = time.perf_counter()
+        nxt, adv = launch(active)
+        per["prefill" if int(adv.max()) > 1 else "decode"].append(
+            (time.perf_counter() - t0) * 1e3)
+        return nxt, adv
+
+    eng._launch = timed
+    drive(eng, a["requests"](), on_undrained="raise")
+    tick = {kind: statistics.median(v) for kind, v in per.items()}
+    bound_ms = 4 * a["n_params"] / PEAK_BYTES_PER_S * 1e3
+    print(f"[5i] (a) {smi}: LM engine warm (host clock): prefill tick "
+          f"{tick['prefill']:.3f} ms (median of {len(per['prefill'])}, "
+          f"{LM_MAX_BATCH} slots x up to {LM_CHUNK} tokens, one decode step "
+          f"a token), decode tick {tick['decode']:.3f} ms (median of "
+          f"{len(per['decode'])}); the decode step's weight-read bound "
+          f"{bound_ms:.3f} ms ({4 * a['n_params'] / 1e9:.2f} GB at "
+          f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s)")
+    out["b7"] = a["b7"]
+    kinds = [k for k, _ in a["ticks"]]
+    out["a"] = {"prefill_ticks": kinds.count("prefill"),
+                "decode_ticks": kinds.count("decode"), "same": same,
+                "spread": a["spread"], "prefill_ms": tick["prefill"],
+                "decode_ms": tick["decode"], "bound_ms": bound_ms}
+    del a, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b), (c)
+    for tag, name, layers in (("(b)", "stablelm-1.6b", None),
+                              *(("(c)", n, k) for n, k in DENSE_CUT)):
+        full = get_config(name).replace(dtype=torch.float32)
+        run = full if layers is None else full.replace(n_layers=layers)
+        r = dense_model(torch, np, dev, run, tag, DENSE_REQUESTS,
+                        published=full.n_layers if layers else None)
+        out["b7"] += r["b7"]
+        out[name] = {"spread": r["spread"], "layers": run.n_layers,
+                     "published": full.n_layers,
+                     "gb": 4 * r["n_params"] / 1e9}
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (d) the launcher in a subprocess on the card
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *DENSE_LAUNCHER],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(SRC)})
+    lines = proc.stdout.strip().splitlines()
+    first = next((k for k, ln in enumerate(lines)
+                  if ln.startswith("front door: ")), None)
+    lines = lines[first:first + 5] if first is not None else []
+    launches = {ln.split(":")[0].strip(): ln for ln in lines[2:]}
+    check(proc.returncode == 0 and len(lines) == 5 and lines[0].startswith(
+        "front door: 8 LM requests (128 tokens) + 8 frames + 2 video "
+        "streams") and "on cuda" in lines[0]
+          and sorted(launches) == ["lm", "stream", "vision"]
+          and all("launches=0 " not in ln for ln in launches.values()),
+          f"5i (d): launcher exited {proc.returncode}: {proc.stdout} "
+          f"{proc.stderr[-2000:]}")
+    print(f"[5i] (d) python -m repro_torch.launch.serve "
+          f"{' '.join(DENSE_LAUNCHER)}: exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for line in lines:
+        print(f"[5i] (d)   {line}")
+    return out
+
+
+def dense_only(torch, np, dev) -> int:
+    """``chip_smoke.py --dense``: phase 1, the build of ``p2m_conv.cu``
+    (the launcher's vision and stream engines in (d) find it built) and
+    phase 5i alone."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.p2m_conv import conv
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = smi_line()
+    print(f"[1] card: {smi}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
+    conv.build_p2m_conv()
+    print(f"[2] p2m_conv.cu: nvcc {_build.BUILD_INFO['p2m_conv'][0]:.2f} s")
+    print(json.dumps(dense_path(torch, np, dev, smi)))
+    print(smi)
+    return 0
+
+
 def conv2d_yardstick(torch, images, wrows, k, s):
     """One cuDNN conv over the power stack [x, x², x³] (NCHW) with the
     premixed weights, which computes the fused conv's raw accumulation:
@@ -3481,6 +3817,8 @@ def main() -> int:
         return lm_train_only(torch, np, torch.device("cuda"))
     if sys.argv[1:] == ["--door"]:
         return door_only(torch, np, torch.device("cuda"))
+    if sys.argv[1:] == ["--dense"]:
+        return dense_only(torch, np, torch.device("cuda"))
 
     from repro_torch.configs.p2m_vww import (
         CONFIG,
@@ -3688,6 +4026,7 @@ def main() -> int:
         {r.uid: r.frame_outputs for r in stream["gated"].completed}, smi)
     check_faults(torch, np, dev)
     lm_train = lm_train_path(torch, np, dev, lm)
+    dense = dense_path(torch, np, dev, smi)
 
     # ------------------------------------------------------- phase 6
     train = train_path(torch, np, dev)
@@ -3891,12 +4230,13 @@ def main() -> int:
         "replaces": "src/repro/kernels/rwkv_wkv/kernel.py:108",
         # the LM path: ServeEngine's and SessionEngine's prefill ticks;
         # the door's LM engine (phase 5h); the LM train steps (forward
-        # and recompute, phase 5g (c))
+        # and recompute, phase 5g (c)); none on the dense path (5i)
         "launches": (lm["launches"] + door_launches(door, "wkv_fused")
-                     + lm_train["launches"]),
+                     + lm_train["launches"] + dense["b7"]),
         "launches_by_path": {"lm": lm["launches"],
                              "door": door_launches(door, "wkv_fused"),
-                             "lm_train": lm_train["launches"]},
+                             "lm_train": lm_train["launches"],
+                             "dense": dense["b7"]},
         "max_abs_err": wkv_err,
         **wkv_row,
     })

@@ -9,7 +9,8 @@ tree)``) into the port's tree of tensors on ``device``:
 * everything else keeps its layout: the P²M ``theta`` (k, k, C, Co) and
   flat deploy ``w`` (k·k·C, Co) in (kh, kw, C)-fastest order, ``fc``,
   and every BN vector, and every leaf of an LM's parameter or
-  decode-state tree (`repro.models.rwkv6.init_rwkv`, `init_rwkv_state`),
+  decode-state tree (`repro.models.rwkv6.init_rwkv`, `init_rwkv_state`,
+  `repro.models.transformer.init_lm`, `init_cache`),
   since ``x @ W`` is ``x @ W`` in both frameworks (the 4-D ``lora_b`` is
   no ``w``).
 
@@ -25,19 +26,23 @@ import numpy as np
 import torch
 
 
-def tree_from_reference(tree, *, device):
-    """Reference tree (numpy leaves) → port tree (tensors on ``device``)."""
+def tree_from_reference(tree, *, device, dtype=torch.float32):
+    """Reference tree (numpy leaves) → port tree (tensors of ``dtype`` on
+    ``device``).  Every leaf passes through float32, which holds a
+    bfloat16 leaf exactly."""
     if isinstance(tree, dict):
         out = {}
         for key, value in tree.items():
             if key == "w" and np.ndim(value) == 4:
                 out[key] = torch.from_numpy(
                     np.ascontiguousarray(np.transpose(value, (3, 2, 0, 1)))
-                ).to(device)
+                ).to(device=device, dtype=dtype)
             else:
-                out[key] = tree_from_reference(value, device=device)
+                out[key] = tree_from_reference(value, device=device,
+                                               dtype=dtype)
         return out
-    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)
+    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(
+        device=device, dtype=dtype)
 
 
 def train_state_from_reference(state: dict, *, device) -> dict:

@@ -23,7 +23,8 @@ ARCH_IDS = [
     "whisper-tiny",
 ]
 #: Those the port has a module for.
-PORTED = ("rwkv6-3b",)
+PORTED = ("qwen3-32b", "stablelm-1.6b", "qwen2-72b", "llama3.2-1b",
+          "rwkv6-3b")
 
 
 def _load(name: str):

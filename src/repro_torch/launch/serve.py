@@ -7,6 +7,9 @@ Single-engine LM serving:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
       --smoke --device cpu --requests 12 --max-batch 4 --prefill-chunk 8
 
+``--arch`` takes any ported architecture (`configs.PORTED`): rwkv6-3b
+and the dense family (llama3.2-1b, stablelm-1.6b, qwen3-32b, qwen2-72b).
+
 Mixed LM + vision (+ video) traffic through the front door:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
@@ -305,6 +308,10 @@ def main(argv=None) -> None:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = cfg.replace(dtype=torch.float32)
     family = get_family(cfg)
+    if cfg.family in ("vlm", "encdec"):
+        raise SystemExit("serve driver targets pure-text families; "
+                         "multimodal serving needs per-request prefill of "
+                         "cross-attention KV (see serving/engine.py notes)")
     device = resolve_device(args.device)
     params, _ = family.init(torch.Generator(device).manual_seed(0), cfg)
     engine = ServeEngine(params, cfg, max_batch=args.max_batch,

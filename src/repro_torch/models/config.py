@@ -73,8 +73,49 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.n_heads
 
     @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.resolved_head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.resolved_head_dim
+
+    @property
     def n_rwkv_heads(self) -> int:
         return self.d_model // self.rwkv_head_dim
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def param_count_estimate(self) -> int:
+        """The reference's analytic N (MODEL_FLOPS = 6·N·D; active params
+        for MoE), to the integer: the products and the embeddings, without
+        norms and biases; the rwkv and rglru per-layer terms are the
+        reference's approximations."""
+        d, ff, v = self.d_model, self.d_ff, self.vocab
+        per_layer_attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        if self.family == "moe":
+            experts = min(self.top_k, self.n_experts)
+            per_layer_mlp = 3 * d * ff * experts + d * self.n_experts
+        elif self.family == "rwkv":
+            per_layer_attn = 6 * d * d
+            per_layer_mlp = 3 * d * ff
+        elif self.family == "rglru":
+            rec = 3 * d * self.d_rnn + self.conv_width * self.d_rnn
+            n_rec = sum(1 for b in self.block_pattern if b == "rec")
+            frac_rec = n_rec / max(1, len(self.block_pattern))
+            per_layer_attn = frac_rec * rec + (1 - frac_rec) * per_layer_attn
+            per_layer_mlp = 3 * d * ff
+        else:
+            per_layer_mlp = 3 * d * ff
+        n = self.n_layers * (per_layer_attn + per_layer_mlp)
+        if self.family == "vlm" and self.cross_attn_period:
+            n_cross = self.n_layers // self.cross_attn_period
+            n += n_cross * (d * self.q_dim + 2 * d * self.kv_dim
+                            + self.q_dim * d)
+        if self.family == "encdec":
+            n += self.n_encoder_layers * (per_layer_attn + per_layer_mlp)
+            n += self.n_layers * (d * self.q_dim + 2 * d * self.kv_dim
+                                  + self.q_dim * d)
+        n += v * d * (1 if self.tie_embeddings else 2)
+        return int(n)

@@ -20,7 +20,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models import rwkv6
+from repro_torch.models import rwkv6, transformer
 from repro_torch.models.config import ModelConfig
 
 
@@ -41,11 +41,23 @@ def _accuracy(logits, targets):
     return (logits.argmax(-1) == targets).to(logits.dtype).mean()
 
 
+def _lm_loss(params, batch, cfg: ModelConfig):
+    logits, aux = transformer.forward(params, batch["tokens"], cfg)
+    ce = cross_entropy(logits, batch["targets"])
+    return ce + aux, {"ce": ce, "aux": aux,
+                      "acc": _accuracy(logits.detach(), batch["targets"])}
+
+
 def _rwkv_loss(params, batch, cfg: ModelConfig):
     logits, aux, _ = rwkv6.forward(params, batch["tokens"], cfg)
     ce = cross_entropy(logits, batch["targets"])
     return ce + aux, {"ce": ce, "aux": aux,
                       "acc": _accuracy(logits.detach(), batch["targets"])}
+
+
+def _lm_decode_state(cfg, batch, max_len, abstract=False, device=None):
+    return transformer.init_cache(cfg, batch, max_len, abstract=abstract,
+                                  device=device)
 
 
 def _rwkv_decode_state(cfg, batch, max_len, abstract=False, device=None):
@@ -69,12 +81,14 @@ class Family:
 
 
 FAMILIES: dict[str, Family] = {
+    "dense": Family(transformer.init_lm, _lm_loss, transformer.decode_step,
+                    _lm_decode_state, ("tokens", "targets")),
     "rwkv": Family(rwkv6.init_rwkv, _rwkv_loss, rwkv6.decode_step,
                    _rwkv_decode_state, ("tokens", "targets"),
                    prefill=rwkv6.prefill_step),
 }
 #: The reference's other families, still to port.
-NOT_PORTED = ("dense", "moe", "rglru", "vlm", "encdec")
+NOT_PORTED = ("moe", "rglru", "vlm", "encdec")
 
 
 def get_family(cfg: ModelConfig) -> Family:
@@ -95,7 +109,9 @@ def _leaves_with_path(tree, path=""):
 @functools.lru_cache(maxsize=None)
 def validate_slot_layout(cfg: ModelConfig) -> None:
     """Serving's slot table assumes **batch at axis 1** of every
-    decode-state leaf (`ServeEngine._reset_slot` zeroes ``a[:, i]``).
+    decode-state leaf (`ServeEngine._reset_slot` zeroes ``a[:, i]``, the
+    masked decode scan's ``keep`` select masks axis 1; the KV cache is
+    (L, B, T, K, hd)).
     Check that against the family's *declared* state layout (the axes
     tree of ``init_decode_state(..., abstract=True)``) and fail loudly on
     a mismatch."""

@@ -10,11 +10,10 @@ logits are ignored), so every step has the slot table's shape.
 
 Prefill is token by token through the decode step by default.
 ``prefill_chunk=C`` enables the chunked path: one step advances every
-prefilling slot by up to C prompt tokens a tick.  The families the port
-has declare a fused ``prefill`` hook (rwkv: one chunked-WKV forward over
-the whole chunk, the CUDA kernel B7 on the card), which the chunk step
-takes; the reference's masked decode scan for families without one comes
-with the KV-cache families.
+prefilling slot by up to C prompt tokens a tick, through the family's
+fused ``prefill`` hook where it has one (rwkv: one chunked-WKV forward
+over the whole chunk, the CUDA kernel B7 on the card), else through the
+masked decode scan (the KV-cache families: dense).
 
 Steps are cached per config (``_decode_step_for`` / ``_chunk_step_for``,
 metered by `obs.metrics.counted_lru_cache`).  PyTorch runs eagerly, so
@@ -35,7 +34,7 @@ from repro_torch.models.families import get_family, validate_slot_layout
 from repro_torch.obs.metrics import counted_lru_cache
 from repro_torch.serving.scheduler import ScheduledRequest, SlotEngine
 from repro_torch.serving.vision import _tree_to
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 #: Status ``submit`` returns for a request with a prompt token outside
 #: the embedding table: it fails at the door, alone (see `submit`).
@@ -69,25 +68,55 @@ def _decode_step_for(cfg: ModelConfig):
 def _chunk_step_for(cfg: ModelConfig, chunk: int):
     """Chunked-prefill step ``(params, state, tokens (B,C), pos, n_active)
     → (last_logits, state)``: advance slot ``i`` by ``n_active[i] ∈ [0,
-    C]`` tokens in one forward through the family's ``prefill`` hook
-    (rwkv: the masked-prefix chunked forward,
-    `models/rwkv6.py::prefill_step`).  Rows at 0 keep their state bit for
-    bit.  ``last_logits[i]`` is slot i's logits row at its final active
-    position.  Batch sits at axis 1 of every state leaf, validated
-    against the family's declared layout (`validate_slot_layout`)."""
+    C]`` tokens.  Two implementations behind one signature:
+
+    * **Family prefill hook** (rwkv): one masked-prefix chunked forward
+      over all C positions (`models/rwkv6.py::prefill_step`, the kernel
+      B7 on the card).  Positionless families only.
+    * **Masked decode scan** (KV-cache families): a loop over the
+      one-token decode step in which slot i takes part at index ``j``
+      iff ``j < n_active[i]``; a ``where`` select on axis 1 keeps a
+      masked slot's state bit for bit, and its position does not
+      advance, so the tokens are those of C separate decode steps.  The
+      loop stops after ``max(n_active)`` steps: the reference's later
+      steps mask every slot and change nothing.
+
+    ``last_logits[i]`` is slot i's logits row at its final active step
+    (step 0's for a slot at 0).  Batch sits at axis 1 of every state
+    leaf, validated against the family's declared layout
+    (`validate_slot_layout`)."""
     family = get_family(cfg)
     validate_slot_layout(cfg)
-    if family.prefill is None:
-        raise NotImplementedError(
-            f"family {cfg.family!r} has no fused prefill; the masked "
-            f"decode-step scan comes with the KV-cache families")
+
+    if family.prefill is not None:
+        @torch.no_grad()
+        def run(params, state, tokens, pos, n_active):
+            del pos  # prefill hook ⇒ positionless state
+            return family.prefill(params, state, tokens, n_active, cfg)
+
+        return run
 
     @torch.no_grad()
-    def run(params, state, tokens, pos, n_active):
-        del pos  # prefill hook ⇒ positionless state
-        return family.prefill(params, state, tokens, n_active, cfg)
+    def scan(params, state, tokens, pos, n_active):
+        last_idx = torch.clamp(n_active - 1, 0, tokens.shape[1] - 1)
+        last = None
+        for j in range(max(int(n_active.max()), 1)):
+            active = j < n_active  # (B,)
+            logits, new_state = family.decode(params, state,
+                                              tokens[:, j:j + 1], pos, cfg)
 
-    return run
+            def keep(new, old):  # batch axis 1, see validate_slot_layout
+                m = active.reshape((1, -1) + (1,) * (new.ndim - 2))
+                return torch.where(m, new, old)
+
+            state = tree_map(keep, new_state, state)
+            pos = torch.where(active, pos + 1, pos)
+            row = logits[:, -1]
+            last = row if last is None else torch.where(
+                (last_idx == j)[:, None], row, last)
+        return last, state
+
+    return scan
 
 
 def _device_of(params) -> torch.device:
@@ -158,8 +187,9 @@ class ServeEngine(SlotEngine):
                  pad_id: int = 0, prefill_chunk: int = 1,
                  max_queue: int | None = None,
                  evict: str = "drop-newest", device=None, **core):
-        """``params``: the port's tree (`init_rwkv`, or a reference tree
-        through `compat.tree_from_reference`), moved to the device.
+        """``params``: the port's tree (`init_rwkv`, `init_lm`, or a
+        reference tree through `compat.tree_from_reference`), moved to
+        the device.
         ``device``: None ⇒ the GPU (raises when there is none).
         ``core`` forwards the scheduler's fault-tolerance and cadence
         knobs to `SlotEngine`."""

@@ -2,7 +2,9 @@
 through the reference's `FrontDoor` (JAX) and the port's
 (`repro_torch.launch.serve.FrontDoor`, ``device="cpu"``), on the CPU.
 
-Engines: the SMOKE rwkv6 LM (chunked prefill), `_make_vision_engine`'s
+Engines: the SMOKE rwkv6 LM (chunked prefill; in one case the SMOKE
+llama3.2-1b LM, the dense family's masked decode scan, without the
+session lane, which a KV-cache family cannot serve), `_make_vision_engine`'s
 vision model (40², width 0.25, head 64) as a two-replica `ReplicaPool`,
 a delta-gated `StreamEngine` and a `SessionEngine`, the reference's
 weights carried across by `repro_torch.compat`.  The two doors must give
@@ -76,6 +78,17 @@ TOL = 1e-5
 NEVER = 10 ** 9  # the reference's degrade_after: its ladder never fires
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """These shapes are small: one intra-op thread runs them about ten
+    times faster than eight, and the suite's parallel workers share the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models():
     """(reference trees, port trees): the LM, the vision model and the
@@ -85,10 +98,13 @@ def models():
     jlm, _ = j_get_family(jcfg).init(jax.random.PRNGKey(0), jcfg)
     jvp, jvb = j_init_mnv2(jax.random.PRNGKey(1), JMNV2Config(**VKW))
     jdet = j_init_detect_head(jax.random.PRNGKey(2), 64, JDetectConfig())
-    ref = (jlm, jvp, jvb, jdet)
+    jdense_cfg = j_get_smoke_config("llama3.2-1b").replace(dtype=jnp.float32)
+    jdense, _ = j_get_family(jdense_cfg).init(jax.random.PRNGKey(0),
+                                              jdense_cfg)
+    ref = (jlm, jvp, jvb, jdet, jdense)
     port = tuple(compat.tree_from_reference(jax.tree.map(np.asarray, t),
                                             device="cpu") for t in ref)
-    return jcfg, ref, port
+    return {"rwkv6-3b": jcfg, "llama3.2-1b": jdense_cfg}, ref, port
 
 
 def _traffic():
@@ -112,14 +128,17 @@ def _traffic():
     return out
 
 
-def _run(side, models, lm_cost, plan):
+def _run(side, models, lm_cost, plan, arch="rwkv6-3b"):
     """Build the door on one side ("ref" or "port"), replay the traffic,
-    and return the door, its tracer and its injectors."""
-    jcfg, ref, port = models
+    and return the door, its tracer and its injectors.  A dense LM
+    (``arch`` llama3.2-1b) has no session engine: the chat lane and its
+    traffic stay out."""
+    jcfgs, ref, port = models
     is_ref = side == "ref"
+    dense = arch != "rwkv6-3b"
     if is_ref:
-        lm_p, vp, vb, det = ref
-        cfg, vcfg = jcfg, JMNV2Config(**VKW)
+        lm_p, vp, vb, det, dense_p = ref
+        cfg, vcfg = jcfgs[arch], JMNV2Config(**VKW)
         Serve, Session, Vision, Stream, Pool = (
             JServeEngine, JSessionEngine, JVisionEngine, JStreamEngine,
             JReplicaPool)
@@ -130,8 +149,8 @@ def _run(side, models, lm_cost, plan):
         dcfg = JDetectConfig()
         vkw = dict(degrade_after=NEVER)
     else:
-        lm_p, vp, vb, det = port
-        cfg = get_smoke_config("rwkv6-3b").replace(dtype=torch.float32)
+        lm_p, vp, vb, det, dense_p = port
+        cfg = get_smoke_config(arch).replace(dtype=torch.float32)
         vcfg = MNV2Config(**VKW)
         Serve, Session, Vision, Stream, Pool = (
             ServeEngine, SessionEngine, VisionEngine, StreamEngine,
@@ -150,6 +169,8 @@ def _run(side, models, lm_cost, plan):
         return {**kw, "faults": injectors[name], "launch_retries": 1}
 
     lm_kw = {} if is_ref else {"device": "cpu"}
+    if dense:
+        lm_p = dense_p
     engines = {
         "lm": Serve(lm_p, cfg, max_batch=2, max_len=64, prefill_chunk=4,
                     tick_cost=lm_cost,
@@ -159,10 +180,12 @@ def _run(side, models, lm_cost, plan):
                                 **vkw) for k in range(2)]),
         "stream": Stream(vp, vb, vcfg, det, det_cfg=dcfg, max_streams=2,
                          **core("stream", max_serve_ticks=12), **vkw),
-        "chat": Session(lm_p, cfg, max_batch=1, max_len=128,
-                        prefill_chunk=4, **core("chat", max_serve_ticks=60),
-                        **lm_kw),
     }
+    if not dense:
+        engines["chat"] = Session(lm_p, cfg, max_batch=1, max_len=128,
+                                  prefill_chunk=4,
+                                  **core("chat", max_serve_ticks=60),
+                                  **lm_kw)
     tracer = Tr()
     door = Door(tracer=tracer, **engines)
     kinds = {"lm": lambda u, p, t: Req(uid=u, prompt=list(p),
@@ -172,8 +195,8 @@ def _run(side, models, lm_cost, plan):
                                              arrival_tick=t),
              "chat": lambda u, p, t: SReq(uid=u, turns=[list(x) for x in p],
                                           max_new_tokens=3, arrival_tick=t)}
-    door.run([kinds[k](u, p, t) for k, u, p, t in _traffic()],
-             on_undrained="raise")
+    door.run([kinds[k](u, p, t) for k, u, p, t in _traffic()
+              if k in engines], on_undrained="raise")
     return door, tracer, injectors
 
 
@@ -212,11 +235,13 @@ PLAN = {  # one plan an engine: every kind, rates and explicit targets
 }
 
 
-@pytest.mark.parametrize("lm_cost,plan", [(1, None), (4, None), (4, PLAN)],
-                         ids=["cost1", "cost4", "cost4-faults"])
-def test_door_matches_the_reference_door(models, lm_cost, plan):
-    ref, jtr, jinj = _run("ref", models, lm_cost, plan)
-    door, tr, inj = _run("port", models, lm_cost, plan)
+@pytest.mark.parametrize("lm_cost,plan,arch", [
+    (1, None, "rwkv6-3b"), (4, None, "rwkv6-3b"), (4, PLAN, "rwkv6-3b"),
+    (1, None, "llama3.2-1b")],
+    ids=["cost1", "cost4", "cost4-faults", "llama-cost1"])
+def test_door_matches_the_reference_door(models, lm_cost, plan, arch):
+    ref, jtr, jinj = _run("ref", models, lm_cost, plan, arch)
+    door, tr, inj = _run("port", models, lm_cost, plan, arch)
 
     assert [(n, r.uid) for n, r in door.completed] == \
         [(n, r.uid) for n, r in ref.completed]
@@ -265,8 +290,10 @@ def _summary_lines(text):
             for line in text.strip().splitlines()]
 
 
-def test_launcher_mixed_prints_the_references_summary(capsys, monkeypatch):
-    argv = ["--arch", "rwkv6-3b", "--smoke", "--mixed", "--video-streams",
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "llama3.2-1b"])
+def test_launcher_mixed_prints_the_references_summary(capsys, monkeypatch,
+                                                      arch):
+    argv = ["--arch", arch, "--smoke", "--mixed", "--video-streams",
             "2", "--vision-replicas", "2", "--vision-requests", "6",
             "--requests", "4", "--max-new-tokens", "6", "--prefill-chunk",
             "4", "--lm-tick-cost", "2"]

@@ -7,10 +7,14 @@ The reference's weights are carried across by
 the XLA twin (``wkv_impl="xla"``), the port its default ``"cuda"``, which
 on CPU tensors is the plain twin.  Held token for token: the same
 requests give the same tokens, and the same ticks, in both frameworks.
-Also mirrors the single-device rwkv tests of `tests/test_serving.py` and
-`tests/test_sessions.py`, and holds the rules: no GPU ⇒ the default
-engine raises; a failing launch surfaces as failed requests.
+Also mirrors the single-device tests of `tests/test_serving.py` and
+`tests/test_sessions.py`, those the reference runs on both families for
+rwkv6-3b and llama3.2-1b (the dense family: the masked decode scan), and
+holds the rules: no GPU ⇒ the default engine raises; a failing launch
+surfaces as failed requests; a masked slot's KV rows keep their bits.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +23,7 @@ import torch
 
 from repro.configs import get_smoke_config as j_get_smoke_config
 from repro.models.families import get_family as j_get_family
+from repro.serving import engine as j_engine
 from repro.serving import Request as JRequest
 from repro.serving import ServeEngine as JServeEngine
 from repro.serving import SessionEngine as JSessionEngine
@@ -27,6 +32,7 @@ from repro.serving import greedy_generate as j_greedy_generate
 from repro_torch import compat
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch import serve as launch_serve
+from repro_torch.models import families
 from repro_torch.models.families import get_family
 from repro_torch.serving import (
     Request,
@@ -35,19 +41,47 @@ from repro_torch.serving import (
     SessionRequest,
     greedy_generate,
 )
-from repro_torch.serving.engine import FAILED_TOKEN, _decode_step_for
+from repro_torch.serving.engine import (
+    FAILED_TOKEN,
+    _chunk_step_for,
+    _decode_step_for,
+)
 from repro_torch.tree import tree_leaves, tree_map
 
 
-@pytest.fixture(scope="module")
-def lm():
-    jcfg = j_get_smoke_config("rwkv6-3b").replace(dtype=jnp.float32,
-                                                  wkv_impl="xla")
-    cfg = get_smoke_config("rwkv6-3b").replace(dtype=torch.float32)
+ARCHS = ["rwkv6-3b", "llama3.2-1b"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """These shapes are small: one intra-op thread runs them about ten
+    times faster than eight, and the suite's parallel workers share the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _load(arch):
+    kw = {"wkv_impl": "xla"} if arch == "rwkv6-3b" else {}
+    jcfg = j_get_smoke_config(arch).replace(dtype=jnp.float32, **kw)
+    cfg = get_smoke_config(arch).replace(dtype=torch.float32)
     jparams, _ = j_get_family(jcfg).init(jax.random.PRNGKey(0), jcfg)
     params = compat.tree_from_reference(
         jax.tree.map(np.asarray, jparams), device="cpu")
     return jcfg, cfg, jparams, params
+
+
+@pytest.fixture(scope="module")
+def lm():
+    return _load("rwkv6-3b")
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def any_lm(request):
+    """Each family the engine tests of the reference run on."""
+    return _load(request.param)
 
 
 def _engine(lm, **kw):
@@ -80,16 +114,16 @@ def _ledger(done):
 
 
 @pytest.mark.parametrize("chunk", [1, 4, 16])
-def test_engine_matches_reference_engine(lm, chunk):
+def test_engine_matches_reference_engine(any_lm, chunk):
     """Prompt lengths below, at and above the chunk, more requests than
     slots: the same tokens at the same ticks as the JAX engine."""
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, 512, n).tolist() for n in (1, 3, 5, 7, 11, 17)]
     kw = dict(max_batch=2, max_len=64, prefill_chunk=chunk)
-    done = _serve(_engine(lm, **kw),
+    done = _serve(_engine(any_lm, **kw),
                   [Request(uid=i, prompt=p, max_new_tokens=4)
                    for i, p in enumerate(prompts)])
-    ref = _serve(_ref_engine(lm, **kw),
+    ref = _serve(_ref_engine(any_lm, **kw),
                  [JRequest(uid=i, prompt=p, max_new_tokens=4)
                   for i, p in enumerate(prompts)])
     assert len(done) == 6
@@ -147,15 +181,15 @@ def test_out_of_range_session_token_fails_alone(lm):
         assert r.outputs == _reference_session(lm, r.turns, 3), r.uid
 
 
-def test_engine_matches_single_request_decode(lm):
+def test_engine_matches_single_request_decode(any_lm):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 512, 6).tolist() for _ in range(5)]
-    done = _serve(_engine(lm, max_batch=2, max_len=64),
+    done = _serve(_engine(any_lm, max_batch=2, max_len=64),
                   [Request(uid=i, prompt=p, max_new_tokens=5)
                    for i, p in enumerate(prompts)])
     assert len(done) == 5
     for req in done:
-        assert req.output == _reference_decode(lm, req.prompt, 5), req.uid
+        assert req.output == _reference_decode(any_lm, req.prompt, 5), req.uid
 
 
 def test_more_requests_than_slots(lm):
@@ -176,27 +210,27 @@ def test_reset_slot_zeroes_only_that_slot(lm):
 
 
 @pytest.mark.parametrize("chunk", [1, 4])
-def test_recycled_slot_sees_no_stale_state(lm, chunk):
+def test_recycled_slot_sees_no_stale_state(any_lm, chunk):
     rng = np.random.default_rng(1)
     p1 = rng.integers(0, 512, 5).tolist()
     p2 = rng.integers(0, 512, 4).tolist()
-    engine = _engine(lm, max_batch=1, max_len=32, prefill_chunk=chunk)
+    engine = _engine(any_lm, max_batch=1, max_len=32, prefill_chunk=chunk)
     _serve(engine, [Request(uid=0, prompt=p1, max_new_tokens=4)])
     assert len(engine.completed) == 1
     engine.state = tree_map(lambda a: torch.full_like(a, 7.0), engine.state)
     done = _serve(engine, [Request(uid=1, prompt=p2, max_new_tokens=4)])
     (req2,) = [r for r in done if r.uid == 1]
-    assert req2.output == _reference_decode(lm, p2, 4), \
+    assert req2.output == _reference_decode(any_lm, p2, 4), \
         "recycled slot leaked previous occupant's state"
 
 
 @pytest.mark.parametrize("chunk", [4, 16])
-def test_chunked_prefill_token_identical_and_saves_ticks(lm, chunk):
+def test_chunked_prefill_token_identical_and_saves_ticks(any_lm, chunk):
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, 512, n).tolist() for n in (1, 3, 5, 7, 11)]
     outs = {}
     for c in (1, chunk):
-        engine = _engine(lm, max_batch=2, max_len=64, prefill_chunk=c)
+        engine = _engine(any_lm, max_batch=2, max_len=64, prefill_chunk=c)
         done = _serve(engine, [Request(uid=i, prompt=p, max_new_tokens=4)
                                for i, p in enumerate(prompts)])
         outs[c] = ({r.uid: r.output for r in done}, engine.tick)
@@ -224,11 +258,11 @@ def test_bounded_queue_drop_newest(lm):
     assert engine.latency_summary()["evictions"] == 3
 
 
-def test_greedy_generate_matches_reference(lm):
+def test_greedy_generate_matches_reference(any_lm):
     """Every chunking (partial tail, exact, one step) emits the tokens of
     the token-by-token loop, and those of the reference's
     `greedy_generate`."""
-    jcfg, cfg, jparams, params = lm
+    jcfg, cfg, jparams, params = any_lm
     prompts = np.random.default_rng(7).integers(0, 512, (3, 7))
     ref = np.asarray(j_greedy_generate(jparams, jcfg,
                                        jnp.asarray(prompts, jnp.int32),
@@ -239,6 +273,52 @@ def test_greedy_generate_matches_reference(lm):
         assert out.shape == (3, 5) and int(out.max()) < cfg.padded_vocab
         np.testing.assert_array_equal(out.numpy(), ref,
                                       err_msg=f"chunk={chunk}")
+
+
+def test_masked_scan_keeps_a_masked_slots_kv_rows(monkeypatch):
+    """One chunk step of the masked decode scan (llama3.2-1b SMOKE, C = 4)
+    from a random cache: a slot at 0 tokens keeps every KV row bit for
+    bit, a slot at 2 keeps every row but the two it writes, and the step
+    equals the reference's (last logits and cache within 1e-5 of their
+    largest |value|), stopping after max(n_active) = 3 steps."""
+    jcfg, cfg, jparams, params = _load("llama3.2-1b")
+    rng = np.random.default_rng(9)
+    state, _ = get_family(cfg).init_decode_state(cfg, 3, 16, device="cpu")
+    np_state = {k: rng.standard_normal(a.shape).astype(np.float32)
+                for k, a in state.items()}
+    state = {k: torch.from_numpy(a.copy()) for k, a in np_state.items()}
+    before = {k: a.clone() for k, a in state.items()}
+    tokens = rng.integers(0, cfg.vocab, (3, 4))
+    pos = np.asarray([5, 3, 0])
+    n_active = np.asarray([0, 2, 3])
+    calls = []
+    family = get_family(cfg)
+
+    def counted(*args):
+        calls.append(1)
+        return family.decode(*args)
+
+    monkeypatch.setitem(families.FAMILIES, "dense",
+                        dataclasses.replace(family, decode=counted))
+    run = _chunk_step_for.__wrapped__(cfg, 4)  # a step of the patched family
+    last, new = run(params, state, *(torch.from_numpy(a) for a in
+                                     (tokens, pos, n_active)))
+    assert len(calls) == 3
+    for key in ("k", "v"):
+        assert torch.equal(state[key], before[key])  # the input kept
+        assert torch.equal(new[key][:, 0], before[key][:, 0])
+        rows = torch.ones(16, dtype=torch.bool)
+        rows[3:5] = False  # slot 1 writes positions 3 and 4
+        assert torch.equal(new[key][:, 1, rows], before[key][:, 1, rows])
+        assert not torch.equal(new[key][:, 1, ~rows], before[key][:, 1, ~rows])
+    jrun = j_engine._chunk_step_for(jcfg, 4)
+    jlast, jnew = jrun(jparams, {k: jnp.asarray(a) for k, a in
+                                 np_state.items()},
+                       *(jnp.asarray(a, jnp.int32) for a in
+                         (tokens, pos, n_active)))
+    for got, want in [(last, jlast)] + [(new[k], jnew[k]) for k in new]:
+        want = np.asarray(want)
+        assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
 
 
 def test_steps_are_shared_across_engines(lm):
@@ -277,6 +357,22 @@ def test_failed_launch_surfaces_as_failed_requests(lm, monkeypatch):
     assert [(r.uid, r.failure) for r in engine.failed] == [
         (0, "launch"), (1, "launch")]
     assert len(calls) == 2  # one try, one retry, same path
+
+
+def test_launcher_serves_dense_smoke_on_the_cpu(capsys):
+    """``--arch llama3.2-1b`` serves alone (chunked, the masked decode
+    scan) and ``--mixed`` behind the front door."""
+    launch_serve.main(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
+                       "--requests", "3", "--max-batch", "2",
+                       "--max-new-tokens", "4", "--prefill-chunk", "4"])
+    out = capsys.readouterr().out
+    assert "served 3 requests, 12 tokens" in out and "on cpu" in out
+    launch_serve.main(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
+                       "--requests", "2", "--max-new-tokens", "3",
+                       "--mixed", "--vision-requests", "2"])
+    out = capsys.readouterr().out
+    assert out.startswith("front door: 2 LM requests (6 tokens) + 2 frames "
+                          "+ 0 video streams")
 
 
 def test_launcher_serves_smoke_on_the_cpu(capsys):
@@ -392,10 +488,21 @@ def test_session_length_cap_ends_conversation(lm):
     assert len(req.outputs) < 8  # capped before the last turn
 
 
-def test_session_engine_needs_a_ported_prefill_family(lm):
-    _, cfg, _, params = lm
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        SessionEngine(params, cfg.replace(family="dense"), device="cpu")
+@pytest.mark.parametrize("family", ["dense", "moe"])
+def test_session_engine_needs_a_ported_prefill_family(lm, family):
+    """The mirror of `tests/test_sessions.py::
+    test_session_engine_rejects_kv_cache_family`: a KV-cache family has
+    no positionless prefill hook, so construction fails loudly, with the
+    reference's ValueError; a family not ported yet raises so."""
+    if family == "dense":
+        _, cfg, _, params = _load("llama3.2-1b")
+        with pytest.raises(ValueError, match="prefill"):
+            SessionEngine(params, cfg, max_batch=1, max_len=32,
+                          device="cpu")
+    else:
+        _, cfg, _, params = lm
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            SessionEngine(params, cfg.replace(family="moe"), device="cpu")
 
 
 def test_session_replay_is_deterministic(lm):

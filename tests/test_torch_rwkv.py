@@ -228,11 +228,11 @@ def test_configs_match_reference():
     cfg = get_config("rwkv6-3b")
     assert (cfg.wkv_impl, cfg.dtype) == ("cuda", torch.bfloat16)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("llama3.2-1b")
+        get_config("mixtral-8x22b")
     with pytest.raises(KeyError):
         get_config("gpt-5")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_family(cfg.replace(family="dense"))
+        get_family(cfg.replace(family="moe"))
 
 
 def test_init_matches_reference_layout(model):

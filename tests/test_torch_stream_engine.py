@@ -60,6 +60,17 @@ TRACK_KW = dict(head_channels=8, max_dets=4, prior_logit=0.0,
 TOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """These shapes are small: one intra-op thread runs them about ten
+    times faster than eight, and the suite's parallel workers share the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models():
     """Reference trees (JAX) and the same weights in the port's trees:

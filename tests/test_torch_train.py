@@ -42,6 +42,17 @@ from repro_torch.tree import tree_leaves, tree_map
 RTOL, ATOL = 1e-4, 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """These shapes are small: one intra-op thread runs them about ten
+    times faster than eight, and the suite's parallel workers share the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
