@@ -128,7 +128,7 @@ no result:
    layers, d_model 2048, GQA 32/8, vocab 128256, tied) at full width and
    depth through `ServeEngine` (8 slots, max_len 512, chunk 64, the
    masked decode scan) on phase 5c's 16 requests: every request
-   completes, B7 launches no time; the first prefill tick's last-active
+   completes, no kernel of the port launches; the first prefill tick's last-active
    logits from the scan against `transformer.forward` (flash) in float32
    and in float64 (one layer converted at a time), each float32 one
    within 1e-3 of the largest |float64 logit|, the spread printed; each
@@ -141,6 +141,30 @@ no result:
    forward as in (a), each model freed before the next; (d) ``python -m
    repro_torch.launch.serve --arch llama3.2-1b --mixed ...`` in a
    subprocess exits 0 with the front-door summary, every engine launched;
+5j. the MoE and RG-LRU families (float32, random weights from a seed on
+   the card, TF32 off): (a) Qwen3-30B-A3B (128 experts top-8, d_ff 768,
+   qk-norm, 4 KV heads of 128) and (b) Mixtral-8x22B (8 experts top-2,
+   d_ff 16384, window 4096) at published widths, depth cut to 16 of 48
+   and 4 of 56 layers, phase 5c's first 4 requests each through
+   `ServeEngine` as in 5i: every request completes, no kernel of the port
+   launches; the first prefill tick's logits from the scan (decode groups
+   of one token drop nothing) against the forward in float32 and in
+   float64 at the capacity factor E/k, at which nothing drops, each
+   float32 one within 1e-3 of the largest |float64 logit|, with the
+   (token, expert) slots the published factor would drop in that forward
+   counted; the warm prefill and decode ticks beside the whole tree's and
+   the active parameters' weight-read bounds; (c) RecurrentGemma-9B whole
+   (38 layers: 12 groups of rec/rec/attn and a tail of 2) through
+   `greedy_generate(prefill_chunk=1)`, 16 tokens for each of phase 5c's
+   first 4 prompts cut to the shortest: the token-by-token logits at the
+   last prompt position against `rglru.forward` in float32 and in float64
+   (one group converted at a time) within the same limit, the decode
+   step's time beside both bounds; (d) `ServeEngine` (``cache_batch``)
+   and `SessionEngine` (``prefill``) refuse RecurrentGemma at SMOKE on the
+   card before allocating anything, ``launch.serve --arch
+   qwen3-moe-30b-a3b --smoke`` serves on cuda and ``--arch
+   recurrentgemma-9b --smoke`` exits non-zero with ``cache_batch`` in its
+   stderr;
 6. the training path: 6 steps of `make_vww_train_step` on `CONFIG` at
    batch 32 with the paper's `sgd(step_decay(...), momentum=0.9)`; every
    loss finite, each step launches B1 or B2 (as tuned), B3 and B4
@@ -179,7 +203,8 @@ no result:
    blocks, threads, shared memory and its one ring depth), and the LM
    engine's time per prefill and per decode tick with their parts;
 10. one JSON line ``{"kernels": [...]}`` (B1-B7; the door's launches
-    of B1/B2, B5 and B7 under ``launches_by_path["door"]``);
+    of B1/B2, B5 and B7 under ``launches_by_path["door"]``; B7's
+    ``"dense"``, ``"moe"`` and ``"rglru"`` paths, each 0);
 11. the card's name and power limit as nvidia-smi gives them, then the
     last line ``{"ok": true, "device": {...}}``.
 
@@ -192,7 +217,9 @@ and phase 5g alone (`lm_train_only`); ``python3 chip_smoke.py --door``
 phase 1, the builds of ``p2m_conv.cu`` and ``wkv.cu``, phase 5c and
 phase 5h alone, with phase 5's and 5b's main runs as its references
 (`door_only`); ``python3 chip_smoke.py --dense`` phase 1, the build of
-``p2m_conv.cu`` and phase 5i alone (`dense_only`).
+``p2m_conv.cu`` and phase 5i alone (`dense_only`);
+``python3 chip_smoke.py --moe-rglru`` phase 1 and phase 5j alone
+(`moe_rglru_only`).
 """
 from __future__ import annotations
 
@@ -3227,11 +3254,14 @@ DENSE_LAUNCHER = ["--arch", DENSE_ARCH, "--mixed", "--video-streams", "2",
 
 
 def forward_f64(torch, params, tokens, cfg):
-    """`transformer.forward` in float64 on the float32 ``params``, one
-    layer's weights converted at a time (embedding rows, each layer, the
-    head), so a cut Qwen2-72B (24 GB in float32) needs no float64 copy of
-    itself."""
-    from repro_torch.models import transformer
+    """The family's forward (`transformer.forward`, `rglru.forward`) in
+    float64 on the float32 ``params``, one layer's weights (rglru: one
+    group's, then each tail layer's) converted at a time, with the
+    embedding rows and the head, so a cut Qwen2-72B (24 GB in float32) or
+    a Mixtral layer needs no float64 copy of the whole model.  The casts
+    the model itself makes to float32 stay: norms, attention scores and
+    softmax, the MoE router, the RG-LRU's gates and scan, the logits."""
+    from repro_torch.models import rglru, transformer
     from repro_torch.models.layers import lm_head
     from repro_torch.tree import tree_map
 
@@ -3240,10 +3270,23 @@ def forward_f64(torch, params, tokens, cfg):
     pos = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     x = params["embed"]["table"][tokens].double()
     with torch.no_grad():
-        for i in range(cfg.n_layers):
-            lp = tree_map(lambda a: a[i].double(), params["layers"])
-            x = transformer._layer(x, lp, pos, cfg64, impl="flash")
-            del lp
+        if cfg.family == "rglru":
+            n_groups, rem = rglru._pattern_split(cfg)
+            for g in range(n_groups):
+                gp = tree_map(lambda a: a[g].double(), params["groups"])
+                x = rglru._group(x, gp, pos, cfg64)
+                del gp
+            for i in range(rem):
+                tp = tree_map(lambda a: a[i].double(), params["tail"])
+                x, _ = rglru._rec_block(tp, x, None, cfg64)
+                del tp
+        else:
+            for i in range(cfg.n_layers):
+                lp = tree_map(lambda a: a[i].double(), params["layers"])
+                if "moe" in lp:  # the router is float32 by definition
+                    lp["moe"]["router"] = params["layers"]["moe"]["router"][i]
+                x, _ = transformer._layer(x, lp, pos, cfg64, impl="flash")
+                del lp
         head = "table" if cfg.tie_embeddings else "head"
         emb = {"final_norm": tree_map(lambda a: a.double(),
                                       params["embed"]["final_norm"]),
@@ -3251,17 +3294,78 @@ def forward_f64(torch, params, tokens, cfg):
         return lm_head(emb, x, cfg64)
 
 
-def dense_model(torch, np, dev, cfg, tag, n_requests, published=None):
+def forward_f32(params, tokens, cfg):
+    """The family's own forward, float32 logits."""
+    from repro_torch.models import rglru, transformer
+
+    module = rglru if cfg.family == "rglru" else transformer
+    return module.forward(params, tokens, cfg)[0]
+
+
+def kernel_counts() -> dict:
+    """Every kernel wrapper's launch count (B1 and B2, B5 on both bodies,
+    B6, B3, B4, B7)."""
+    from repro_torch.kernels.p2m_conv import backward, conv, gated, kernel
+    from repro_torch.kernels.rwkv_wkv import kernel as wkv_kernel
+
+    return {**stem_launches(conv), **gated_launches(gated),
+            "p2m_matmul_fused": kernel.p2m_matmul_fused.launches,
+            "p2m_bwd_dx": backward.p2m_bwd_dx.launches,
+            "p2m_bwd_dw": backward.p2m_bwd_dw.launches,
+            "wkv_fused": wkv_kernel.wkv_fused.launches}
+
+
+def reset_kernel_counts() -> None:
+    from repro_torch.kernels.p2m_conv import backward, conv, gated, kernel
+    from repro_torch.kernels.rwkv_wkv import kernel as wkv_kernel
+
+    reset_stem_launches(conv)
+    reset_gated_launches(gated)
+    kernel.p2m_matmul_fused.launches = 0
+    backward.p2m_bwd_dx.launches = 0
+    backward.p2m_bwd_dw.launches = 0
+    wkv_kernel.wkv_fused.launches = 0
+
+
+def moe_drops(cfg, fn):
+    """Run ``fn()`` with each MoE layer's input routed once more at
+    ``cfg``'s own capacity factor: returns (fn's result, the (token,
+    expert) slots that factor would drop, the slots routed)."""
+    from repro_torch.models import moe, transformer
+
+    real, count = transformer.apply_moe, [0, 0]
+
+    def counting(p, x, run_cfg):
+        _, _, idx = moe.route(p, x, run_cfg)
+        pos = moe.positions(idx, cfg.n_experts)
+        count[0] += int((pos >= moe.capacity(cfg, x.shape[1])).sum())
+        count[1] += pos.numel()
+        return real(p, x, run_cfg)
+
+    transformer.apply_moe = counting
+    try:
+        out = fn()
+    finally:
+        transformer.apply_moe = real
+    return out, count[0], count[1]
+
+
+def served_model(torch, np, dev, cfg, tag, n_requests, published=None,
+                 phase="5i"):
     """Serve ``cfg`` (float32, random weights from ``SEED`` on the card)
     through `ServeEngine` (8 slots, max_len 512, chunk 64) on the first
-    ``n_requests`` of phase 5c's requests: every request completes, B7
-    launches no time; then the first prefill tick's last-active logits
-    from the masked decode scan against `transformer.forward` in float32
-    and in float64 on the same prompts.  Returns the engine, the params,
-    the outputs, the margins, the spread and the parameter count."""
+    ``n_requests`` of phase 5c's requests: every request completes, no
+    kernel of the port launches (the counts are set to 0 before and read
+    after); then the first prefill tick's last-active logits from the
+    masked decode scan against the family's forward in float32 and in
+    float64 on the same prompts.  A MoE model's two forwards run at the
+    capacity factor E/k, at which ``capacity(S) ≥ S`` and nothing drops
+    (decode groups hold one token and drop nothing at the published
+    factor); the slots the published factor would drop in that forward
+    are counted.  Returns the engine, the params, the outputs, the
+    margins, the spread and the parameter count."""
     from repro_torch.common.pytree import param_count
-    from repro_torch.kernels.rwkv_wkv import kernel
-    from repro_torch.models import transformer
+    from repro_torch.models import moe
     from repro_torch.models.families import get_family
     from repro_torch.serving import ServeEngine, drive
 
@@ -3273,12 +3377,15 @@ def dense_model(torch, np, dev, cfg, tag, n_requests, published=None):
     est = cfg.param_count_estimate()
     depth = (f"{cfg.n_layers} of {published} layers run" if published
              else f"{cfg.n_layers} layers")
-    print(f"[5i] {tag} {cfg.name}: {depth}, d_model {cfg.d_model}, "
+    ffn = (f"{cfg.n_experts} experts top-{cfg.top_k} of d_ff {cfg.d_ff}"
+           if cfg.family == "moe" else f"d_ff {cfg.d_ff}")
+    print(f"[{phase}] {tag} {cfg.name}: {depth}, d_model {cfg.d_model}, "
           f"{cfg.n_heads} heads of {cfg.resolved_head_dim} ({cfg.n_kv_heads} "
-          f"KV), d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params} parameters "
-          f"in the tree, {est} by the reference's estimate (no norms or "
-          f"biases), {4 * n_params / 1e9:.2f} GB fp32, initialized on the "
-          f"card in {time.perf_counter() - t0:.2f} s")
+          f"KV), {ffn}, vocab {cfg.vocab}; {n_params} parameters in the "
+          f"tree, {est} by the reference's estimate (no norms or biases"
+          f"{'; active experts' if cfg.family == 'moe' else ''}), "
+          f"{4 * n_params / 1e9:.2f} GB fp32, initialized on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
     lengths, requests = lm_traffic(np, cfg.vocab, n_requests)
     eng = ServeEngine(params, cfg, max_batch=LM_MAX_BATCH, max_len=LM_MAX_LEN,
                       prefill_chunk=LM_CHUNK, device=dev)
@@ -3287,28 +3394,30 @@ def dense_model(torch, np, dev, cfg, tag, n_requests, published=None):
     first = {}
     ticks, margins = lm_instrument(torch, eng, first)
     torch.cuda.synchronize()
-    kernel.wkv_fused.launches = 0
+    reset_kernel_counts()
     t0 = time.perf_counter()
     drive(eng, requests(), on_undrained="raise")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    b7 = kernel.wkv_fused.launches
+    launched = kernel_counts()
     done = sorted(eng.completed, key=lambda r: r.uid)
     check([r.uid for r in done] == list(range(n_requests))
           and not eng.failed and not eng.evicted,
-          f"5i {tag}: completed {[r.uid for r in done]}, failed "
+          f"{phase} {tag}: completed {[r.uid for r in done]}, failed "
           f"{len(eng.failed)}, evicted {len(eng.evicted)}")
     check(all(len(r.output) == LM_NEW_TOKENS
               and all(0 <= t < cfg.vocab for t in r.output) for r in done),
-          f"5i {tag}: outputs misshapen")
-    check(b7 == 0, f"5i {tag}: the dense path launched B7 {b7} times")
+          f"{phase} {tag}: outputs misshapen")
+    check(not any(launched.values()),
+          f"{phase} {tag}: the {cfg.family} path launched kernels {launched}")
     kinds = [k for k, _ in ticks]
-    print(f"[5i] {tag} ServeEngine: {len(done)} requests (prompts "
+    print(f"[{phase}] {tag} ServeEngine: {len(done)} requests (prompts "
           f"{min(lengths)}-{max(lengths)} tokens), "
           f"{sum(len(r.output) for r in done)} tokens in "
           f"{eng.stats['launches']} ticks ({kinds.count('prefill')} prefill, "
           f"{kinds.count('decode')} decode), {seconds:.2f} s cold; KV cache "
-          f"{cache_gb:.3f} GB; B7 launches {b7}")
+          f"{cache_gb:.3f} GB; kernel launches {sum(launched.values())} "
+          f"(B7 {launched['wkv_fused']})")
 
     # The first prefill tick: every slot starts at position 0 from an
     # empty cache, so the forward over the tick's tokens sees each
@@ -3316,13 +3425,33 @@ def dense_model(torch, np, dev, cfg, tag, n_requests, published=None):
     # are the scan's.
     _, tokens, pos, n_active = first["inputs"]
     rows = n_active > 0
-    check(bool((pos[rows] == 0).all()), f"5i {tag}: the first prefill tick "
-          "does not start at position 0")
+    check(bool((pos[rows] == 0).all()), f"{phase} {tag}: the first prefill "
+          "tick does not start at position 0")
     idx = (n_active[rows] - 1).long()
     sel = torch.arange(int(rows.sum()), device=dev)
+    ref_cfg, drops = cfg, ""
+    if cfg.family == "moe":
+        ref_cfg = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+        s = tokens.shape[1]
+        check(moe.capacity(ref_cfg, s) >= s and moe.capacity(cfg, 1)
+              >= cfg.top_k, f"{phase} {tag}: capacities")
     with torch.no_grad():
-        f32 = transformer.forward(params, tokens[rows], cfg)[0][sel, idx]
-    f64 = forward_f64(torch, params, tokens[rows], cfg)[sel, idx]
+        if cfg.family == "moe":
+            f32, n_drop, n_slot = moe_drops(
+                cfg, lambda: forward_f32(params, tokens[rows], ref_cfg))
+            cf = ref_cfg.capacity_factor
+            drops = (f"; the forwards at capacity factor {cf:g} (capacity "
+                     f"{moe.capacity(ref_cfg, s)} of "
+                     f"{s} tokens) drop nothing, the published "
+                     f"{cfg.capacity_factor:g} (capacity "
+                     f"{moe.capacity(cfg, s)}) would drop {n_drop} of "
+                     f"{n_slot} (token, expert) slots in that forward; "
+                     f"decode capacity {moe.capacity(cfg, 1)} a "
+                     f"one-token group drops none")
+        else:
+            f32 = forward_f32(params, tokens[rows], cfg)
+        f32 = f32[sel, idx]
+    f64 = forward_f64(torch, params, tokens[rows], ref_cfg)[sel, idx]
     last = {"scan": first["last"][rows].double(), "forward": f32.double(),
             "f64": f64}
     del first, f32
@@ -3332,27 +3461,29 @@ def dense_model(torch, np, dev, cfg, tag, n_requests, published=None):
                          ("forward", "f64"))}
     scale = float(last["f64"].abs().max())
     spread = max(dist.values())
-    print(f"[5i] {tag} first prefill tick ({int(rows.sum())} slots, "
-          f"{int(n_active.sum())} tokens), masked decode scan vs "
-          f"transformer.forward (flash): logits max abs differences (of "
+    print(f"[{phase}] {tag} first prefill tick ({int(rows.sum())} slots, "
+          f"{int(n_active.sum())} tokens), masked decode scan vs the "
+          f"forward (flash): logits max abs differences (of "
           f"{scale:.3e}): " + ", ".join(f"{k} {v:.3e}" for k, v in
                                          dist.items())
           + f"; the float32 spread {spread:.3e} ({spread / scale:.2e} of "
-          f"the largest |logit|)")
+          f"the largest |logit|){drops}")
     check(max(dist["scan-f64"], dist["forward-f64"]) <= DENSE_F64_TOL * scale,
-          f"5i {tag}: float32 logits {dist} from float64, more than "
+          f"{phase} {tag}: float32 logits {dist} from float64, more than "
           f"{DENSE_F64_TOL} of {scale}")
     return {"engine": eng, "params": params, "cfg": cfg, "requests": requests,
             "outputs": {r.uid: r.output for r in done}, "margins": margins,
             "spread": spread, "n_params": n_params, "ticks": ticks,
-            "b7": b7}
+            "b7": launched["wkv_fused"]}
 
 
-def greedy_margins(torch, engine_mod):
+def greedy_margins(torch, engine_mod, keep_last=False):
     """Wrap the engine module's step factories so `greedy_generate`'s
-    steps record the top-2 margin of each row's logits, in call order.
-    Returns (the margins list, a function that restores the factories)."""
-    margins = []
+    steps record, in call order, the top-2 margin of each row's logits,
+    each step's host time through a synchronize, and with ``keep_last``
+    the logits.  Returns (the record, a function that restores the
+    factories)."""
+    rec = {"margins": [], "ms": [], "last": []}
     real = engine_mod._decode_step_for, engine_mod._chunk_step_for
 
     def wrapped(factory):
@@ -3360,9 +3491,15 @@ def greedy_margins(torch, engine_mod):
             step = factory(*args)
 
             def run(*a):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
                 last, state = step(*a)
+                torch.cuda.synchronize()
+                rec["ms"].append((time.perf_counter() - t0) * 1e3)
                 top = torch.topk(last, 2, dim=-1).values
-                margins.append(float((top[:, 0] - top[:, 1]).min()))
+                rec["margins"].append(float((top[:, 0] - top[:, 1]).min()))
+                if keep_last:
+                    rec["last"].append(last.clone())
                 return last, state
             return run
         return make
@@ -3373,7 +3510,31 @@ def greedy_margins(torch, engine_mod):
     def restore():
         engine_mod._decode_step_for, engine_mod._chunk_step_for = real
 
-    return margins, restore
+    return rec, restore
+
+
+def warm_ticks(dev, params, cfg, requests):
+    """Serve ``requests()`` once more on a fresh `ServeEngine` (8 slots,
+    max_len 512, chunk 64): the median host time of its prefill and of
+    its decode ticks, and how many of each."""
+    from repro_torch.serving import ServeEngine, drive
+
+    eng = ServeEngine(params, cfg, max_batch=LM_MAX_BATCH,
+                      max_len=LM_MAX_LEN, prefill_chunk=LM_CHUNK, device=dev)
+    launch = eng._launch
+    per = {"prefill": [], "decode": []}
+
+    def timed(active):
+        t0 = time.perf_counter()
+        nxt, adv = launch(active)
+        per["prefill" if int(adv.max()) > 1 else "decode"].append(
+            (time.perf_counter() - t0) * 1e3)
+        return nxt, adv
+
+    eng._launch = timed
+    drive(eng, requests(), on_undrained="raise")
+    return {kind: statistics.median(v) for kind, v in per.items()}, \
+        {kind: len(v) for kind, v in per.items()}
 
 
 def dense_path(torch, np, dev, smi):
@@ -3391,14 +3552,15 @@ def dense_path(torch, np, dev, smi):
     import os
 
     from repro_torch.configs import get_config
-    from repro_torch.serving import ServeEngine, drive, greedy_generate
+    from repro_torch.serving import greedy_generate
     from repro_torch.serving import engine as engine_mod
 
     out = {}
     # (a)
     cfg = get_config(DENSE_ARCH).replace(dtype=torch.float32)
-    a = dense_model(torch, np, dev, cfg, "(a)", LM_REQUESTS)
-    margins, restore = greedy_margins(torch, engine_mod)
+    a = served_model(torch, np, dev, cfg, "(a)", LM_REQUESTS)
+    rec, restore = greedy_margins(torch, engine_mod)
+    margins = rec["margins"]
     same, t0 = 0, time.perf_counter()
     try:
         for req in a["requests"]():
@@ -3427,27 +3589,13 @@ def dense_path(torch, np, dev, smi):
           f"behind an emitted token "
           f"{min(min(v) for v in a['margins'].values()):.3e}")
     # The engine per tick, warm: the same requests again.
-    eng = ServeEngine(a["params"], cfg, max_batch=LM_MAX_BATCH,
-                      max_len=LM_MAX_LEN, prefill_chunk=LM_CHUNK, device=dev)
-    launch = eng._launch
-    per = {"prefill": [], "decode": []}
-
-    def timed(active):
-        t0 = time.perf_counter()
-        nxt, adv = launch(active)
-        per["prefill" if int(adv.max()) > 1 else "decode"].append(
-            (time.perf_counter() - t0) * 1e3)
-        return nxt, adv
-
-    eng._launch = timed
-    drive(eng, a["requests"](), on_undrained="raise")
-    tick = {kind: statistics.median(v) for kind, v in per.items()}
+    tick, n_ticks = warm_ticks(dev, a["params"], cfg, a["requests"])
     bound_ms = 4 * a["n_params"] / PEAK_BYTES_PER_S * 1e3
     print(f"[5i] (a) {smi}: LM engine warm (host clock): prefill tick "
-          f"{tick['prefill']:.3f} ms (median of {len(per['prefill'])}, "
+          f"{tick['prefill']:.3f} ms (median of {n_ticks['prefill']}, "
           f"{LM_MAX_BATCH} slots x up to {LM_CHUNK} tokens, one decode step "
           f"a token), decode tick {tick['decode']:.3f} ms (median of "
-          f"{len(per['decode'])}); the decode step's weight-read bound "
+          f"{n_ticks['decode']}); the decode step's weight-read bound "
           f"{bound_ms:.3f} ms ({4 * a['n_params'] / 1e9:.2f} GB at "
           f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s)")
     out["b7"] = a["b7"]
@@ -3456,7 +3604,7 @@ def dense_path(torch, np, dev, smi):
                 "decode_ticks": kinds.count("decode"), "same": same,
                 "spread": a["spread"], "prefill_ms": tick["prefill"],
                 "decode_ms": tick["decode"], "bound_ms": bound_ms}
-    del a, eng
+    del a
     gc.collect()
     torch.cuda.empty_cache()
     # (b), (c)
@@ -3464,8 +3612,8 @@ def dense_path(torch, np, dev, smi):
                               *(("(c)", n, k) for n, k in DENSE_CUT)):
         full = get_config(name).replace(dtype=torch.float32)
         run = full if layers is None else full.replace(n_layers=layers)
-        r = dense_model(torch, np, dev, run, tag, DENSE_REQUESTS,
-                        published=full.n_layers if layers else None)
+        r = served_model(torch, np, dev, run, tag, DENSE_REQUESTS,
+                         published=full.n_layers if layers else None)
         out["b7"] += r["b7"]
         out[name] = {"spread": r["spread"], "layers": run.n_layers,
                      "published": full.n_layers,
@@ -3514,6 +3662,236 @@ def dense_only(torch, np, dev) -> int:
     conv.build_p2m_conv()
     print(f"[2] p2m_conv.cu: nvcc {_build.BUILD_INFO['p2m_conv'][0]:.2f} s")
     print(json.dumps(dense_path(torch, np, dev, smi)))
+    print(smi)
+    return 0
+
+
+# Phase 5j: the MoE family at published widths, depth cut to fit float32
+# in 80 GB beside the rest of the run; RecurrentGemma-9B whole.
+MOE_CUT = (("qwen3-moe-30b-a3b", 16), ("mixtral-8x22b", 4))
+RGLRU_ARCH = "recurrentgemma-9b"
+RGLRU_ROWS = 4  # the first four of phase 5c's prompts, cut to the shortest
+MOE_RGLRU_LAUNCHERS = (  # (arguments, should it serve)
+    (["--arch", MOE_CUT[0][0], "--smoke"], True),
+    (["--arch", RGLRU_ARCH, "--smoke"], False))
+
+
+def bounds_line(cfg, n_params) -> tuple[float, float, str]:
+    """The whole tree's and the active parameters' read at
+    ``PEAK_BYTES_PER_S``, ms, and the text that names them."""
+    tree_ms = 4 * n_params / PEAK_BYTES_PER_S * 1e3
+    est = cfg.param_count_estimate()
+    active_ms = 4 * est / PEAK_BYTES_PER_S * 1e3
+    return tree_ms, active_ms, (
+        f"weight-read bounds: the whole tree {tree_ms:.3f} ms "
+        f"({4 * n_params / 1e9:.2f} GB), the active parameters "
+        f"(param_count_estimate {est}) {active_ms:.3f} ms, at "
+        f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s")
+
+
+def rglru_model(torch, np, dev, smi):
+    """Phase 5j (c): RecurrentGemma-9B whole (38 layers: 12 groups of
+    (rec, rec, attn) and a recurrent tail of 2), float32, random weights
+    from ``SEED`` on the card: `greedy_generate` with
+    ``prefill_chunk=1`` on one batch of phase 5c's first four prompts
+    cut to the shortest, no kernel of the port launched; the token-by-
+    token logits at the last prompt position against `rglru.forward` in
+    float32 and in float64, each float32 one within ``DENSE_F64_TOL`` of
+    the largest |float64 logit|; the warm per-step time beside both
+    weight-read bounds."""
+    from repro_torch.common.pytree import param_count
+    from repro_torch.configs import get_config
+    from repro_torch.models import rglru
+    from repro_torch.models.families import get_family
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving import greedy_generate
+
+    cfg = get_config(RGLRU_ARCH).replace(dtype=torch.float32)
+    t0 = time.perf_counter()
+    params, _ = get_family(cfg).init(torch.Generator(dev).manual_seed(SEED),
+                                     cfg)
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    n_groups, rem = rglru._pattern_split(cfg)
+    print(f"[5j] (c) {cfg.name}: {cfg.n_layers} layers ({n_groups} groups "
+          f"of {'/'.join(cfg.block_pattern)}, a tail of {rem}), d_model "
+          f"{cfg.d_model}, d_rnn {cfg.d_rnn}, {cfg.n_heads} heads "
+          f"({cfg.n_kv_heads} KV), window {cfg.sliding_window}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}; {n_params} parameters in the "
+          f"tree, {cfg.param_count_estimate()} by the reference's estimate, "
+          f"{4 * n_params / 1e9:.2f} GB fp32, initialized on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    lengths, requests = lm_traffic(np, cfg.vocab, RGLRU_ROWS)
+    p = int(min(lengths))
+    prompts = np.asarray([r.prompt[:p] for r in requests()])
+    rec, restore = greedy_margins(torch, engine_mod, keep_last=True)
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    try:
+        out = greedy_generate(params, cfg, prompts, LM_NEW_TOKENS,
+                              max_len=LM_MAX_LEN, prefill_chunk=1)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    seconds = time.perf_counter() - t0
+    launched = kernel_counts()
+    check(tuple(out.shape) == (RGLRU_ROWS, LM_NEW_TOKENS)
+          and bool(((out >= 0) & (out < cfg.vocab)).all()),
+          f"5j (c): greedy_generate gave {tuple(out.shape)}")
+    check(len(rec["last"]) == p + LM_NEW_TOKENS,
+          f"5j (c): {len(rec['last'])} decode steps, not {p} + "
+          f"{LM_NEW_TOKENS}")
+    check(not any(launched.values()),
+          f"5j (c): the rglru path launched kernels {launched}")
+    step_ms = statistics.median(rec["ms"][1:])
+    tree_ms, active_ms, bounds = bounds_line(cfg, n_params)
+    print(f"[5j] (c) greedy_generate(prefill_chunk=1): {RGLRU_ROWS} rows of "
+          f"{p} prompt tokens, {LM_NEW_TOKENS} tokens a row, "
+          f"{p + LM_NEW_TOKENS} decode steps in {seconds:.2f} s cold; kernel "
+          f"launches {sum(launched.values())} (B7 {launched['wkv_fused']}); "
+          f"the smallest top-2 margin {min(rec['margins']):.3e}")
+    print(f"[5j] (c) {smi}: decode step {step_ms:.3f} ms (host clock through "
+          f"a synchronize, median of {len(rec['ms']) - 1} steps, batch "
+          f"{RGLRU_ROWS}); {bounds}")
+    tokens = torch.from_numpy(prompts).to(dev)
+    with torch.no_grad():
+        f32 = forward_f32(params, tokens, cfg)[:, -1]
+    f64 = forward_f64(torch, params, tokens, cfg)[:, -1]
+    last = {"decode": rec["last"][p - 1].double(), "forward": f32.double(),
+            "f64": f64}
+    del rec
+    dist = {f"{a}-{b}": float((last[a] - last[b]).abs().max())
+            for a, b in (("decode", "forward"), ("decode", "f64"),
+                         ("forward", "f64"))}
+    scale = float(last["f64"].abs().max())
+    spread = max(dist.values())
+    print(f"[5j] (c) the last prompt position, token-by-token decode vs "
+          f"rglru.forward: logits max abs differences (of {scale:.3e}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in dist.items())
+          + f"; the float32 spread {spread:.3e} ({spread / scale:.2e} of "
+          f"the largest |logit|)")
+    check(max(dist["decode-f64"], dist["forward-f64"])
+          <= DENSE_F64_TOL * scale,
+          f"5j (c): float32 logits {dist} from float64, more than "
+          f"{DENSE_F64_TOL} of {scale}")
+    return {"n_params": n_params, "layers": cfg.n_layers, "spread": spread,
+            "step_ms": step_ms, "tree_bound_ms": tree_ms,
+            "active_bound_ms": active_ms, "b7": launched["wkv_fused"]}
+
+
+def moe_rglru_path(torch, np, dev, smi):
+    """Phase 5j: the MoE and RG-LRU families on the card, float32, TF32
+    off.  (a) Qwen3-30B-A3B and (b) Mixtral-8x22B at published widths,
+    depth cut, 4 requests each through `ServeEngine` (the masked decode
+    scan), decode against a no-drop forward in float32 and float64, warm
+    ticks beside both weight-read bounds; (c) RecurrentGemma-9B whole
+    through `greedy_generate(prefill_chunk=1)`; (d) the refusals:
+    `ServeEngine` and `SessionEngine` on RecurrentGemma at SMOKE raise
+    the reference's ValueErrors before allocating anything, and the
+    launcher serves ``--arch qwen3-moe-30b-a3b --smoke`` and refuses
+    ``--arch recurrentgemma-9b --smoke``.  Every model is freed before
+    the next.  Returns what the summary reads."""
+    import gc
+    import os
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models.families import get_family
+    from repro_torch.serving import ServeEngine, SessionEngine
+
+    out = {"b7": {}}
+    for tag, (name, layers) in zip(("(a)", "(b)"), MOE_CUT):
+        full = get_config(name).replace(dtype=torch.float32)
+        run = full.replace(n_layers=layers)
+        torch.cuda.reset_peak_memory_stats()
+        r = served_model(torch, np, dev, run, tag, DENSE_REQUESTS,
+                         published=full.n_layers, phase="5j")
+        tick, n_ticks = warm_ticks(dev, r["params"], run,
+                                   r["requests"])
+        tree_ms, active_ms, bounds = bounds_line(run, r["n_params"])
+        print(f"[5j] {tag} {smi}: {name} engine warm (host clock): prefill "
+              f"tick {tick['prefill']:.3f} ms (median of "
+              f"{n_ticks['prefill']}), decode tick {tick['decode']:.3f} ms "
+              f"(median of {n_ticks['decode']}); the decode step's {bounds}; "
+              f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+              f"allocated")
+        out["b7"][name] = r["b7"]
+        out[name] = {"layers": run.n_layers, "published": full.n_layers,
+                     "n_params": r["n_params"],
+                     "gb": 4 * r["n_params"] / 1e9, "spread": r["spread"],
+                     "prefill_ms": tick["prefill"],
+                     "decode_ms": tick["decode"], "tree_bound_ms": tree_ms,
+                     "active_bound_ms": active_ms}
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    c = rglru_model(torch, np, dev, smi)
+    print(f"[5j] (c) peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"allocated")
+    out["b7"][RGLRU_ARCH] = c.pop("b7")
+    out[RGLRU_ARCH] = c
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) the refusals on the card, at SMOKE
+    cfg = get_smoke_config(RGLRU_ARCH).replace(dtype=torch.float32)
+    params, _ = get_family(cfg).init(torch.Generator(dev).manual_seed(SEED),
+                                     cfg)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for engine, match in ((ServeEngine, "cache_batch"),
+                          (SessionEngine, "prefill")):
+        try:
+            engine(params, cfg, max_batch=LM_MAX_BATCH, max_len=LM_MAX_LEN,
+                   prefill_chunk=LM_CHUNK, device=dev)
+        except ValueError as exc:
+            refusal = str(exc)
+        else:
+            refusal = None
+        check(refusal is not None and match in refusal
+              and torch.cuda.memory_allocated() == before,
+              f"5j (d): {engine.__name__} on {cfg.name}: {refusal}")
+        print(f"[5j] (d) {engine.__name__} on {cfg.name} ({dev}): "
+              f"ValueError before allocating: {refusal[:110]}...")
+    del params
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+
+    def launch(argv):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", *argv],
+            capture_output=True, text=True, timeout=600, cwd=ROOT, env=env)
+        return proc, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(MOE_RGLRU_LAUNCHERS)) as pool:
+        runs = list(pool.map(launch, [a for a, _ in MOE_RGLRU_LAUNCHERS]))
+    for (argv, serves), (proc, seconds) in zip(MOE_RGLRU_LAUNCHERS, runs):
+        lines = proc.stdout.strip().splitlines()
+        if serves:
+            ok = (proc.returncode == 0 and lines
+                  and lines[0].startswith("served ") and "on cuda" in lines[0])
+            said = lines[0] if lines else ""
+        else:
+            said = proc.stderr.strip().splitlines()[-1][:160] \
+                if proc.stderr.strip() else ""
+            ok = proc.returncode != 0 and "cache_batch" in proc.stderr
+        check(bool(ok), f"5j (d): launcher {' '.join(argv)} exited "
+              f"{proc.returncode}: {proc.stdout[-2000:]} "
+              f"{proc.stderr[-2000:]}")
+        print(f"[5j] (d) python -m repro_torch.launch.serve {' '.join(argv)}: "
+              f"exit {proc.returncode} in {seconds:.1f} s: {said}")
+    return out
+
+
+def moe_rglru_only(torch, np, dev) -> int:
+    """``chip_smoke.py --moe-rglru``: phase 1 and phase 5j alone (its
+    paths and launchers run no kernel of the port, so nothing is
+    built)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = smi_line()
+    print(f"[1] card: {smi}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
+    print(json.dumps(moe_rglru_path(torch, np, dev, smi)))
     print(smi)
     return 0
 
@@ -3819,6 +4197,8 @@ def main() -> int:
         return door_only(torch, np, torch.device("cuda"))
     if sys.argv[1:] == ["--dense"]:
         return dense_only(torch, np, torch.device("cuda"))
+    if sys.argv[1:] == ["--moe-rglru"]:
+        return moe_rglru_only(torch, np, torch.device("cuda"))
 
     from repro_torch.configs.p2m_vww import (
         CONFIG,
@@ -4027,6 +4407,7 @@ def main() -> int:
     check_faults(torch, np, dev)
     lm_train = lm_train_path(torch, np, dev, lm)
     dense = dense_path(torch, np, dev, smi)
+    moe_rglru = moe_rglru_path(torch, np, dev, smi)
 
     # ------------------------------------------------------- phase 6
     train = train_path(torch, np, dev)
@@ -4230,17 +4611,25 @@ def main() -> int:
         "replaces": "src/repro/kernels/rwkv_wkv/kernel.py:108",
         # the LM path: ServeEngine's and SessionEngine's prefill ticks;
         # the door's LM engine (phase 5h); the LM train steps (forward
-        # and recompute, phase 5g (c)); none on the dense path (5i)
+        # and recompute, phase 5g (c)); none on the dense path (5i), the
+        # MoE path or the RG-LRU path (5j)
         "launches": (lm["launches"] + door_launches(door, "wkv_fused")
-                     + lm_train["launches"] + dense["b7"]),
+                     + lm_train["launches"] + dense["b7"]
+                     + sum(moe_rglru["b7"].values())),
         "launches_by_path": {"lm": lm["launches"],
                              "door": door_launches(door, "wkv_fused"),
                              "lm_train": lm_train["launches"],
-                             "dense": dense["b7"]},
+                             "dense": dense["b7"],
+                             "moe": sum(moe_rglru["b7"][name]
+                                        for name, _ in MOE_CUT),
+                             "rglru": moe_rglru["b7"][RGLRU_ARCH]},
         "max_abs_err": wkv_err,
         **wkv_row,
     })
     check(len(kernels) == 7, f"{len(kernels)} kernels in the line")
+    b7_paths = kernels[-1]["launches_by_path"]
+    check(all(b7_paths[path] == 0 for path in ("dense", "moe", "rglru")),
+          f"B7 launched on a path that has no WKV: {b7_paths}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

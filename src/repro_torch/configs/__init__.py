@@ -24,7 +24,8 @@ ARCH_IDS = [
 ]
 #: Those the port has a module for.
 PORTED = ("qwen3-32b", "stablelm-1.6b", "qwen2-72b", "llama3.2-1b",
-          "rwkv6-3b")
+          "qwen3-moe-30b-a3b", "mixtral-8x22b", "rwkv6-3b",
+          "recurrentgemma-9b")
 
 
 def _load(name: str):

@@ -7,8 +7,12 @@ Single-engine LM serving:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
       --smoke --device cpu --requests 12 --max-batch 4 --prefill-chunk 8
 
-``--arch`` takes any ported architecture (`configs.PORTED`): rwkv6-3b
-and the dense family (llama3.2-1b, stablelm-1.6b, qwen3-32b, qwen2-72b).
+``--arch`` takes any ported architecture (`configs.PORTED`) that the slot
+engines serve: rwkv6-3b, the dense family (llama3.2-1b, stablelm-1.6b,
+qwen3-32b, qwen2-72b) and the MoE family (qwen3-moe-30b-a3b,
+mixtral-8x22b).  recurrentgemma-9b is ported, but its decode state keeps
+batch at axis 2, so `ServeEngine` refuses it with a ``cache_batch``
+ValueError, as the reference's launcher does.
 
 Mixed LM + vision (+ video) traffic through the front door:
 

@@ -20,7 +20,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models import rwkv6, transformer
+from repro_torch.models import rglru, rwkv6, transformer
 from repro_torch.models.config import ModelConfig
 
 
@@ -55,6 +55,13 @@ def _rwkv_loss(params, batch, cfg: ModelConfig):
                       "acc": _accuracy(logits.detach(), batch["targets"])}
 
 
+def _rglru_loss(params, batch, cfg: ModelConfig):
+    logits, aux = rglru.forward(params, batch["tokens"], cfg)
+    ce = cross_entropy(logits, batch["targets"])
+    return ce + aux, {"ce": ce, "aux": aux,
+                      "acc": _accuracy(logits.detach(), batch["targets"])}
+
+
 def _lm_decode_state(cfg, batch, max_len, abstract=False, device=None):
     return transformer.init_cache(cfg, batch, max_len, abstract=abstract,
                                   device=device)
@@ -62,6 +69,11 @@ def _lm_decode_state(cfg, batch, max_len, abstract=False, device=None):
 
 def _rwkv_decode_state(cfg, batch, max_len, abstract=False, device=None):
     return rwkv6.init_rwkv_state(cfg, batch, abstract=abstract, device=device)
+
+
+def _rglru_decode_state(cfg, batch, max_len, abstract=False, device=None):
+    return rglru.init_rglru_state(cfg, batch, max_len, abstract=abstract,
+                                  device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,15 +92,19 @@ class Family:
     prefill: Callable | None = None
 
 
+_DECODER = Family(transformer.init_lm, _lm_loss, transformer.decode_step,
+                  _lm_decode_state, ("tokens", "targets"))
 FAMILIES: dict[str, Family] = {
-    "dense": Family(transformer.init_lm, _lm_loss, transformer.decode_step,
-                    _lm_decode_state, ("tokens", "targets")),
+    "dense": _DECODER,
+    "moe": _DECODER,  # the same transformer, a MoE FFN a layer
     "rwkv": Family(rwkv6.init_rwkv, _rwkv_loss, rwkv6.decode_step,
                    _rwkv_decode_state, ("tokens", "targets"),
                    prefill=rwkv6.prefill_step),
+    "rglru": Family(rglru.init_rglru, _rglru_loss, rglru.decode_step,
+                    _rglru_decode_state, ("tokens", "targets")),
 }
 #: The reference's other families, still to port.
-NOT_PORTED = ("moe", "rglru", "vlm", "encdec")
+NOT_PORTED = ("vlm", "encdec")
 
 
 def get_family(cfg: ModelConfig) -> Family:
@@ -114,7 +130,8 @@ def validate_slot_layout(cfg: ModelConfig) -> None:
     (L, B, T, K, hd)).
     Check that against the family's *declared* state layout (the axes
     tree of ``init_decode_state(..., abstract=True)``) and fail loudly on
-    a mismatch."""
+    a mismatch: rglru's grouped ``rec_conv``/``rec_h`` leaves carry batch
+    at axis 2, which the slot engines would silently corrupt."""
     family = get_family(cfg)
     _, axes = family.init_decode_state(cfg, 1, 8, abstract=True)
     bad = [(path, ax) for path, ax in _leaves_with_path(axes)

@@ -1,13 +1,14 @@
-"""Decoder-only LM, the dense family (llama, qwen, stablelm); port of
-`repro.models.transformer`.
+"""Decoder-only LM: the dense (llama, qwen, stablelm) and MoE (qwen3-moe,
+mixtral) families; port of `repro.models.transformer`.
 
 Parameters stay stacked with a leading ``n_layers`` axis; `forward`
 unbinds them once and runs the layers in a Python loop (the reference's
 ``lax.scan``), each under `torch.utils.checkpoint` when ``cfg.remat``
 and grad mode is on.  `decode_step` runs one token a slot against the
 stacked KV cache (`layers.cached_attention`) and returns a new cache;
-the cache it is given is not written.  The MoE branch comes with
-`models/moe.py`.
+the cache it is given is not written.  A MoE layer's FFN is
+`models/moe.py::apply_moe`; `forward` sums its aux losses over the
+layers, in layer order, and `decode_step` discards them.
 """
 from __future__ import annotations
 
@@ -31,17 +32,12 @@ from repro_torch.models.layers import (
     init_norm,
     lm_head,
 )
-from repro_torch.tree import tree_map
-
-
-_NO_MOE = ("family 'moe' is not ported yet: the port's transformer has "
-           "the dense MLP only")
+from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.tree import tree_unstack
 
 
 def init_lm(generator: torch.Generator, cfg: ModelConfig) -> tuple[dict, dict]:
     """(params, axes), drawn from ``generator`` on its own device."""
-    if cfg.family == "moe":
-        raise NotImplementedError(_NO_MOE)
     kg = KeyGen(generator)
     dev = kg.device
     L = (cfg.n_layers,)
@@ -49,35 +45,32 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig) -> tuple[dict, dict]:
         "attn_norm": init_norm(cfg, L, device=dev),
         "attn": init_attention(kg, cfg, L),
         "mlp_norm": init_norm(cfg, L, device=dev),
-        "mlp": init_mlp(kg, cfg, L),
     }
+    if cfg.family == "moe":
+        layers["moe"] = init_moe(kg, cfg, L)
+    else:
+        layers["mlp"] = init_mlp(kg, cfg, L)
     tree = {"embed": init_embedding(kg, cfg), "layers": layers}
     return split_tree(tree)
 
 
-def _ffn(lp: dict, h):
-    if "moe" in lp:
-        raise NotImplementedError(_NO_MOE)
-    return apply_mlp(lp["mlp"], h)
-
-
 def _layer(x, lp, positions, cfg: ModelConfig, *, impl: str):
+    """One layer: (x, aux loss), the aux a float32 0 for the dense MLP."""
     h = apply_norm(lp["attn_norm"], x, cfg)
     x = x + attention_block(lp["attn"], h, positions, cfg,
                             window=cfg.sliding_window, impl=impl)
     h = apply_norm(lp["mlp_norm"], x, cfg)
-    return x + _ffn(lp, h)
-
-
-def _per_layer(params: dict, n_layers: int) -> list[dict]:
-    """The stacked layer tree as one tree a layer (one unbind a leaf)."""
-    per_leaf = tree_map(lambda a: a.unbind(0), params["layers"])
-    return [tree_map(lambda a: a[i], per_leaf) for i in range(n_layers)]
+    if "moe" in lp:
+        y, aux = apply_moe(lp["moe"], h, cfg)
+    else:
+        y = apply_mlp(lp["mlp"], h)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
             positions: torch.Tensor | None = None, *, impl: str = "flash"):
-    """tokens: (B, S) → (logits (B, S, V) fp32, aux_loss scalar 0)."""
+    """tokens: (B, S) → (logits (B, S, V) fp32, aux_loss scalar)."""
     b, s = tokens.shape
     device = params["embed"]["table"].device
     if positions is None:
@@ -89,9 +82,10 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
         # the layer draws no random numbers: no RNG state to keep
         layer_fn = functools.partial(checkpoint, layer_fn, use_reentrant=False,
                                      preserve_rng_state=False)
-    for lp in _per_layer(params, cfg.n_layers):
-        x = layer_fn(x, lp)
     aux = torch.zeros((), dtype=torch.float32, device=device)
+    for lp in tree_unstack(params["layers"], cfg.n_layers):
+        x, a = layer_fn(x, lp)
+        aux = aux + a
     return lm_head(params["embed"], x, cfg), aux
 
 
@@ -115,14 +109,18 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     """
     x = embed_tokens(params["embed"], tokens, cfg)
     new_k, new_v = [], []
-    for i, lp in enumerate(_per_layer(params, cfg.n_layers)):
+    for i, lp in enumerate(tree_unstack(params["layers"], cfg.n_layers)):
         h = apply_norm(lp["attn_norm"], x, cfg)
         att, nk, nv = cached_attention(lp["attn"], h, cache["k"][i],
                                        cache["v"][i], pos, cfg,
                                        window=cfg.sliding_window)
         x = x + att
         h = apply_norm(lp["mlp_norm"], x, cfg)
-        x = x + _ffn(lp, h)
+        if "moe" in lp:
+            y, _ = apply_moe(lp["moe"], h, cfg)
+        else:
+            y = apply_mlp(lp["mlp"], h)
+        x = x + y
         new_k.append(nk)
         new_v.append(nv)
     new_cache = {"k": torch.stack(new_k), "v": torch.stack(new_v)}

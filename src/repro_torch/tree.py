@@ -21,6 +21,13 @@ def tree_map(fn: Callable, tree, *rest) -> Any:
     return fn(tree, *rest)
 
 
+def tree_unstack(tree, n: int) -> list:
+    """A tree stacked on a leading axis of ``n`` as ``n`` trees, one an
+    index (one ``unbind`` a leaf)."""
+    per_leaf = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda a: a[i], per_leaf) for i in range(n)]
+
+
 def tree_unflatten(like, leaves) -> Any:
     """A tree of ``like``'s structure holding ``leaves`` in the order
     `tree_leaves` gives."""

@@ -25,6 +25,10 @@ inputs at an unaligned offset, give the same bits.  Under autograd
 gradients are held to autograd of the plain twin in float64 within 1e-4
 of the largest value; an LM train step launches B7 twice a layer with
 remat, once without, and its loss is within 1e-5 of the plain WKV's.
+The MoE layer (`models/moe.py::apply_moe`) and the RG-LRU SMOKE decode
+run no kernel of the port: on the card they equal the CPU within 1e-5
+of the largest value, a router tie included (the stable sort orders
+equal probabilities on both devices as `jax.lax.top_k` does).
 """
 import numpy as np
 import pytest
@@ -46,7 +50,9 @@ from repro_torch.kernels.p2m_conv import (
 from repro_torch.kernels.p2m_conv.ops import _coeff_tuple
 from repro_torch.kernels.rwkv_wkv import kernel as wkv_kernel
 from repro_torch.kernels.rwkv_wkv.ref import wkv_chunked_plain
+from repro_torch.models import moe
 from repro_torch.models.families import get_family
+from repro_torch.models.init_utils import KeyGen, split_tree
 from repro_torch.models.mobilenetv2 import (
     MNV2Config,
     head_out_channels,
@@ -1270,3 +1276,80 @@ def test_front_door_on_the_card_launches_what_its_engines_count(cuda, chaos):
         assert len(door.completed) == len(reqs)
         assert all(not e.failed and not e.evicted and
                    e.stats["launch_faults"] == 0 for e in engines)
+
+
+# ------------------------------------------------------ MoE and RG-LRU
+
+
+def _max_rel(got, want):
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("case", ["qwen3-moe-30b-a3b", "mixtral-8x22b",
+                                  "drops", "tie"])
+def test_moe_on_the_card_matches_the_cpu(cuda, case):
+    """`apply_moe` at both SMOKE widths, with a capacity factor that drops
+    tokens, and with a router whose top-2 the order at ties decides."""
+    if case in ("drops", "tie"):
+        cfg = get_smoke_config("qwen3-moe-30b-a3b").replace(
+            capacity_factor=0.25 if case == "drops" else 0.5,
+            **({"n_experts": 4} if case == "tie" else {}))
+    else:
+        cfg = get_smoke_config(case)
+    cfg = cfg.replace(dtype=torch.float32)
+    tree = moe.init_moe(KeyGen(torch.Generator().manual_seed(0)), cfg, (1,))
+    p = {k: v[0] for k, v in split_tree(tree)[0].items()}
+    rng = np.random.default_rng(1)
+    x = rng.normal(0, 1, (3, 40, cfg.d_model)).astype(np.float32)
+    if case == "tie":  # experts 1.. share one integer column: exact ties
+        x = np.round(x).astype(np.float32)
+        col = rng.integers(-2, 3, cfg.d_model)
+        p["router"] = torch.from_numpy(np.stack(
+            [rng.integers(-2, 3, cfg.d_model)] + [col] * (cfg.n_experts - 1),
+            axis=1).astype(np.float32))
+    out = {}
+    for device in ("cpu", "cuda"):
+        with torch.no_grad():
+            pd = {k: v.to(device) for k, v in p.items()}
+            xd = torch.from_numpy(x).to(device)
+            out[device] = (*moe.apply_moe(pd, xd, cfg),
+                           moe.route(pd, xd, cfg)[2])
+    assert torch.equal(out["cuda"][2].cpu(), out["cpu"][2])
+    assert _max_rel(out["cuda"][0], out["cpu"][0]) <= 1e-5
+    assert _max_rel(out["cuda"][1], out["cpu"][1]) <= 1e-5
+
+
+def test_rglru_decode_on_the_card_matches_the_cpu(cuda):
+    """RecurrentGemma SMOKE, 18 tokens token by token (the window is 8):
+    every step's logits and the final state, leaf by leaf."""
+    cfg = get_smoke_config("recurrentgemma-9b").replace(dtype=torch.float32)
+    family = get_family(cfg)
+    params, _ = family.init(torch.Generator().manual_seed(0), cfg)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 18)))
+    out = {}
+    for device in ("cpu", "cuda"):
+        pd = _to(params, device)
+        state, _ = family.init_decode_state(cfg, 2, 64, device=device)
+        logits = []
+        with torch.no_grad():
+            for t in range(toks.shape[1]):
+                lg, state = family.decode(pd, state,
+                                          toks[:, t:t + 1].to(device),
+                                          torch.full((2,), t, device=device),
+                                          cfg)
+                logits.append(lg[:, 0])
+        out[device] = (torch.stack(logits, 1), state)
+    assert _max_rel(out["cuda"][0], out["cpu"][0]) <= 1e-5
+    flat = lambda t: ([x for v in t.values() for x in flat(v)]  # noqa: E731
+                      if isinstance(t, dict) else [t])
+    for got, want in zip(flat(out["cuda"][1]), flat(out["cpu"][1])):
+        assert got.shape == want.shape
+        assert _max_rel(got, want) <= 1e-5
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)

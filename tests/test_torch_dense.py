@@ -289,11 +289,9 @@ def test_dense_configs_match_reference():
                 theirs.param_count_estimate(), name
     # the tree adds 33 norm vectors of 2048: 1,235,814,400
     assert get_config("llama3.2-1b").param_count_estimate() == 1_235_746_816
-    assert "dense" not in NOT_PORTED and "moe" in NOT_PORTED
+    assert "dense" not in NOT_PORTED and "vlm" in NOT_PORTED
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        transformer.init_lm(torch.Generator(),
-                            get_smoke_config("llama3.2-1b").replace(
-                                family="moe"))
+        get_family(get_smoke_config("llama3.2-1b").replace(family="vlm"))
 
 
 @pytest.mark.parametrize("arch", DENSE)

@@ -50,6 +50,7 @@ from repro_torch.tree import tree_leaves, tree_map
 
 
 ARCHS = ["rwkv6-3b", "llama3.2-1b"]
+MOE_ARCHS = ["qwen3-moe-30b-a3b", "mixtral-8x22b"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -84,6 +85,12 @@ def any_lm(request):
     return _load(request.param)
 
 
+@pytest.fixture(scope="module", params=MOE_ARCHS)
+def moe_lm(request):
+    """The MoE family, served by the masked decode scan as dense."""
+    return _load(request.param)
+
+
 def _engine(lm, **kw):
     _, cfg, _, params = lm
     return ServeEngine(params, cfg, device="cpu", **kw)
@@ -113,21 +120,33 @@ def _ledger(done):
                   for r in done)
 
 
-@pytest.mark.parametrize("chunk", [1, 4, 16])
-def test_engine_matches_reference_engine(any_lm, chunk):
+def _engine_matches_reference_engine(lm, chunk):
     """Prompt lengths below, at and above the chunk, more requests than
     slots: the same tokens at the same ticks as the JAX engine."""
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, 512, n).tolist() for n in (1, 3, 5, 7, 11, 17)]
     kw = dict(max_batch=2, max_len=64, prefill_chunk=chunk)
-    done = _serve(_engine(any_lm, **kw),
+    done = _serve(_engine(lm, **kw),
                   [Request(uid=i, prompt=p, max_new_tokens=4)
                    for i, p in enumerate(prompts)])
-    ref = _serve(_ref_engine(any_lm, **kw),
+    ref = _serve(_ref_engine(lm, **kw),
                  [JRequest(uid=i, prompt=p, max_new_tokens=4)
                   for i, p in enumerate(prompts)])
     assert len(done) == 6
     assert _ledger(done) == _ledger(ref)
+
+
+@pytest.mark.parametrize("chunk", [1, 4, 16])
+def test_engine_matches_reference_engine(any_lm, chunk):
+    _engine_matches_reference_engine(any_lm, chunk)
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_moe_engine_matches_reference_engine(moe_lm, chunk):
+    """qwen3-moe and mixtral SMOKE: decode groups of one token each, so
+    the capacity dispatch drops nothing and a slot's tokens do not
+    depend on its neighbours'."""
+    _engine_matches_reference_engine(moe_lm, chunk)
 
 
 @pytest.mark.parametrize("bad_token", ["padded_vocab", "below"])
@@ -359,20 +378,28 @@ def test_failed_launch_surfaces_as_failed_requests(lm, monkeypatch):
     assert len(calls) == 2  # one try, one retry, same path
 
 
-def test_launcher_serves_dense_smoke_on_the_cpu(capsys):
-    """``--arch llama3.2-1b`` serves alone (chunked, the masked decode
-    scan) and ``--mixed`` behind the front door."""
-    launch_serve.main(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
+def _launcher_serves_smoke(capsys, arch):
+    """``--arch`` serves alone (chunked, the masked decode scan) and
+    ``--mixed`` behind the front door."""
+    launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                        "--requests", "3", "--max-batch", "2",
                        "--max-new-tokens", "4", "--prefill-chunk", "4"])
     out = capsys.readouterr().out
     assert "served 3 requests, 12 tokens" in out and "on cpu" in out
-    launch_serve.main(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
+    launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                        "--requests", "2", "--max-new-tokens", "3",
                        "--mixed", "--vision-requests", "2"])
     out = capsys.readouterr().out
     assert out.startswith("front door: 2 LM requests (6 tokens) + 2 frames "
                           "+ 0 video streams")
+
+
+def test_launcher_serves_dense_smoke_on_the_cpu(capsys):
+    _launcher_serves_smoke(capsys, "llama3.2-1b")
+
+
+def test_launcher_serves_moe_smoke_on_the_cpu(capsys):
+    _launcher_serves_smoke(capsys, "mixtral-8x22b")
 
 
 def test_launcher_serves_smoke_on_the_cpu(capsys):
@@ -488,21 +515,22 @@ def test_session_length_cap_ends_conversation(lm):
     assert len(req.outputs) < 8  # capped before the last turn
 
 
-@pytest.mark.parametrize("family", ["dense", "moe"])
+@pytest.mark.parametrize("family", ["dense", "moe", "vlm"])
 def test_session_engine_needs_a_ported_prefill_family(lm, family):
     """The mirror of `tests/test_sessions.py::
-    test_session_engine_rejects_kv_cache_family`: a KV-cache family has
-    no positionless prefill hook, so construction fails loudly, with the
-    reference's ValueError; a family not ported yet raises so."""
-    if family == "dense":
-        _, cfg, _, params = _load("llama3.2-1b")
+    test_session_engine_rejects_kv_cache_family`: a KV-cache family (dense,
+    moe) has no positionless prefill hook, so construction fails loudly,
+    with the reference's ValueError; a family not ported yet raises so."""
+    if family in ("dense", "moe"):
+        arch = "llama3.2-1b" if family == "dense" else "mixtral-8x22b"
+        _, cfg, _, params = _load(arch)
         with pytest.raises(ValueError, match="prefill"):
             SessionEngine(params, cfg, max_batch=1, max_len=32,
                           device="cpu")
     else:
         _, cfg, _, params = lm
         with pytest.raises(NotImplementedError, match="not ported yet"):
-            SessionEngine(params, cfg.replace(family="moe"), device="cpu")
+            SessionEngine(params, cfg.replace(family="vlm"), device="cpu")
 
 
 def test_session_replay_is_deterministic(lm):

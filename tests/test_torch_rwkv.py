@@ -228,11 +228,11 @@ def test_configs_match_reference():
     cfg = get_config("rwkv6-3b")
     assert (cfg.wkv_impl, cfg.dtype) == ("cuda", torch.bfloat16)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("mixtral-8x22b")
+        get_config("llama-3.2-vision-11b")
     with pytest.raises(KeyError):
         get_config("gpt-5")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_family(cfg.replace(family="moe"))
+        get_family(cfg.replace(family="vlm"))
 
 
 def test_init_matches_reference_layout(model):
