@@ -165,6 +165,38 @@ no result:
    qwen3-moe-30b-a3b --smoke`` serves on cuda and ``--arch
    recurrentgemma-9b --smoke`` exits non-zero with ``cache_batch`` in its
    stderr;
+5k. the multimodal families and the P²M frontend (float32, random weights
+   from a seed on the card, TF32 off; phase 5j's models freed first):
+   (a) the frontend at the reference's default `P2MFrontendConfig()`
+   (560², k = s = 5, pool 4: 784 tokens of 128 features, d_model 4096),
+   folded (`deploy_params`, `premix_deploy`), on 4 SyntheticVWW frames:
+   one B1 or B2 launch, as the tuner picks (printed), the stem held to
+   ``impl="plain"`` by the count rule and the embeddings within 1e-5 of
+   the plain run's on every token whose counts all agree; (b)
+   Llama-3.2-Vision-11B whole (40 layers: 8 groups of 4 self layers and
+   a gated cross layer; 9,775,157,264 parameters, 39.10 GB) with its
+   gates set to nonzero values from the seed (printed): on the frontend's
+   tokens and then on the config's 1600 stub embeddings, `vlm.forward`,
+   `prefill_cross_kv` and `decode_step` over phase 5c's first 4 prompts
+   cut to 32 tokens and 16 greedy tokens, the decode's logits at every
+   prompt position and the forward's each within 1e-3 of the largest
+   |logit| of a float64 forward (one group converted at a time); another
+   frame's tokens move the logits by more than the float32 spread; the
+   warm decode step beside the weight read; the peak memory; (c)
+   Whisper-tiny whole (36,651,264 parameters): `prefill_cross_kv` on 8
+   rows of stub source frames (8, 1500, 384), 64 teacher-forced decode
+   steps against `whisper.forward` in float32 and float64 within the
+   same limit, the decode step's time; no kernel of the port launches in
+   (b) or (c); (d) the frontend's train form on 8 frames (BN on batch
+   statistics): the gradients of a fixed scalar of the embeddings with
+   respect to θ, the BN affine and ``proj`` through `P2MConvFunction`
+   (B1 or B2 forward, B3 and B4 once each) against ``impl="plain"``
+   within 1e-3 of each leaf's largest value, and the conv's backward on
+   the run's own cotangent within 1e-4, as phase 7 (b); (e) ``launch.serve
+   --arch llama-3.2-vision-11b --smoke`` and ``--arch whisper-tiny
+   --smoke`` exit non-zero with the reference's refusal, and
+   `SessionEngine` refuses the SMOKE VLM (``prefill``) before allocating
+   anything;
 6. the training path: 6 steps of `make_vww_train_step` on `CONFIG` at
    batch 32 with the paper's `sgd(step_decay(...), momentum=0.9)`; every
    loss finite, each step launches B1 or B2 (as tuned), B3 and B4
@@ -203,8 +235,10 @@ no result:
    blocks, threads, shared memory and its one ring depth), and the LM
    engine's time per prefill and per decode tick with their parts;
 10. one JSON line ``{"kernels": [...]}`` (B1-B7; the door's launches
-    of B1/B2, B5 and B7 under ``launches_by_path["door"]``; B7's
-    ``"dense"``, ``"moe"`` and ``"rglru"`` paths, each 0);
+    of B1/B2, B5 and B7 under ``launches_by_path["door"]``; the
+    frontend's of B1/B2, B3 and B4 under ``"frontend"``; B7's
+    ``"dense"``, ``"moe"``, ``"rglru"``, ``"vlm"`` and ``"encdec"``
+    paths, each 0);
 11. the card's name and power limit as nvidia-smi gives them, then the
     last line ``{"ok": true, "device": {...}}``.
 
@@ -219,7 +253,9 @@ phase 5h alone, with phase 5's and 5b's main runs as its references
 (`door_only`); ``python3 chip_smoke.py --dense`` phase 1, the build of
 ``p2m_conv.cu`` and phase 5i alone (`dense_only`);
 ``python3 chip_smoke.py --moe-rglru`` phase 1 and phase 5j alone
-(`moe_rglru_only`).
+(`moe_rglru_only`); ``python3 chip_smoke.py --multimodal`` phase 1, the
+builds of ``p2m_conv.cu`` and ``p2m_bwd.cu`` and phase 5k alone
+(`multimodal_only`).
 """
 from __future__ import annotations
 
@@ -568,22 +604,9 @@ def grad_parity(torch, train):
     print(f"[7] the CUDA step twice: bitwise equal {same}")
     check(same, "the CUDA step is not deterministic")
     # (b) the conv's backward on the step's own cotangent
-    w = core._flat_weights(params["stem"]["theta"], cfg).detach()
-    for impl in ("cuda", "plain"):
-        im = images.detach().requires_grad_(True)
-        ww = w.clone().requires_grad_(True)
-        raw = core._conv_raw(im, ww, cfg, model, impl)
-        if impl == "cuda":
-            got = torch.autograd.grad(raw, [im, ww], cuda["g_raw"])
-        else:
-            want = torch.autograd.grad(raw, [im, ww], cuda["g_raw"])
-    for name, a, b in (("images (B3, col2im)", got[0], want[0]),
-                       ("w (B4)", got[1], want[1])):
-        err, scale = diff(a, b)
-        print(f"[7] conv backward on the step's cotangent, d/d {name}: "
-              f"{err:.3e} of {scale:.3e}")
-        check(err <= 1e-4 * scale, f"conv gradient for {name} differs by "
-              f"{err}, more than 1e-4 of {scale}")
+    conv_cotangent_check(torch, "[7]", images,
+                         core._flat_weights(params["stem"]["theta"], cfg),
+                         cuda["g_raw"], cfg, model)
     # (c) the two steps
     report("CUDA step vs plain step", cuda, plain)
     check(abs(cuda["loss"] - plain["loss"]) <= 1e-5 * abs(plain["loss"]),
@@ -3896,6 +3919,599 @@ def moe_rglru_only(torch, np, dev) -> int:
     return 0
 
 
+# Phase 5k: the P²M frontend feeding Llama-3.2-Vision-11B whole, and
+# Whisper-tiny whole (float32, TF32 off, random weights from a seed).
+VLM_ARCH = "llama-3.2-vision-11b"
+WHISPER_ARCH = "whisper-tiny"
+MM_FRAMES = 4  # (a), (b): one 560² frame a prompt
+MM_PROMPT = 32  # (b): phase 5c's first four prompts, cut to 32 tokens
+MM_NEW_TOKENS = 16  # (b): greedy tokens after the prompt
+MM_TRAIN_FRAMES = 8  # (d)
+WHISPER_ROWS = 8  # (c): stub source frames at max_source_positions
+WHISPER_STEPS = 64  # (c): teacher-forced decode steps
+MM_EMB_TOL = 1e-5  # (a): tokens whose stem counts all agree, of max |emb|
+MM_GRAD_TOL = 1e-3  # (d): end-to-end gradients, of each leaf's max |value|
+MM_LAUNCHERS = (["--arch", VLM_ARCH, "--smoke"],
+                ["--arch", WHISPER_ARCH, "--smoke"])
+MM_REFUSAL = "pure-text families"  # the reference's launcher's message
+
+
+def conv_cotangent_check(torch, label, images, w, g_raw, cfg, model):
+    """The conv's backward on a given cotangent of its raw output: B3 (and
+    the col2im) and B4 through `P2MConvFunction` against autograd through
+    the plain conv, d/d images and d/d w each within 1e-4 of its largest
+    value (phase 7 (b), 5k (d))."""
+    from repro_torch.core import p2m_conv as core
+
+    got = {}
+    for impl in ("cuda", "plain"):
+        im = images.detach().requires_grad_(True)
+        ww = w.detach().clone().requires_grad_(True)
+        raw = core._conv_raw(im, ww, cfg, model, impl)
+        got[impl] = torch.autograd.grad(raw, [im, ww], g_raw)
+    for i, name in enumerate(("images (B3, col2im)", "w (B4)")):
+        a, b = got["cuda"][i], got["plain"][i]
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        print(f"{label} conv backward on the step's cotangent, d/d {name}: "
+              f"{err:.3e} of {scale:.3e}")
+        check(err <= 1e-4 * scale, f"{label}: conv gradient for {name} "
+              f"differs by {err}, more than 1e-4 of {scale}")
+
+
+def logits_vs_f64(tag, runs, f64, vocab, tol=DENSE_F64_TOL):
+    """Each float32 run's logits (name -> tensor, the shape of ``f64``) and
+    their differences, over the real vocabulary: every run within ``tol``
+    of the largest |float64 logit|.  Returns (the float32 spread, the
+    scale)."""
+    f64 = f64[..., :vocab]
+    runs = {k: v[..., :vocab].double() for k, v in runs.items()}
+    names = list(runs)
+    dist = {f"{a}-f64": float((runs[a] - f64).abs().max()) for a in names}
+    dist.update({f"{a}-{b}": float((runs[a] - runs[b]).abs().max())
+                 for i, a in enumerate(names) for b in names[i + 1:]})
+    scale = float(f64.abs().max())
+    spread = max(dist.values())
+    print(f"[5k] {tag}: logits max abs differences (of {scale:.3e}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in dist.items())
+          + f"; the float32 spread {spread:.3e} ({spread / scale:.2e} of the "
+          f"largest |logit|)")
+    check(all(dist[f"{a}-f64"] <= tol * scale for a in names),
+          f"5k {tag}: float32 logits {dist} from float64, more than {tol} "
+          f"of {scale}")
+    return spread, scale
+
+
+def vlm_forward_f64(torch, params, tokens, image_embeds, cfg):
+    """`vlm.forward` in float64 on the float32 ``params``, one group's
+    weights (its self layers and its cross block) converted at a time,
+    with the embedding rows and the head; the casts the model makes to
+    float32 stay (norms, attention scores and softmax, the logits)."""
+    from repro_torch.models import vlm
+    from repro_torch.models.layers import lm_head
+    from repro_torch.tree import tree_map
+
+    cfg64 = cfg.replace(dtype=torch.float64)
+    b, s = tokens.shape
+    pos = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    x = params["embed"]["table"][tokens].double()
+    img = image_embeds.double()
+    n_groups, _ = vlm._n_groups(cfg)
+    with torch.no_grad():
+        for g in range(n_groups):
+            sp = tree_map(lambda a: a[g].double(), params["self"])
+            cp = tree_map(lambda a: a[g].double(), params["cross"])
+            x = vlm._group(x, sp, cp, img, pos, cfg64)
+            del sp, cp
+        emb = {"final_norm": tree_map(lambda a: a.double(),
+                                      params["embed"]["final_norm"]),
+               "head": params["embed"]["head"].double()}
+        return lm_head(emb, x, cfg64)
+
+
+def teacher_decode(torch, decode_step, params, state, tokens, cfg,
+                   new_tokens=0):
+    """``decode_step`` over ``tokens`` (B, S) one position at a time, then
+    ``new_tokens`` greedy steps: (the logits at each prompt position (B,
+    S, V), the greedy tokens (B, new_tokens), each step's host ms through
+    a synchronize)."""
+    b, s = tokens.shape
+    logits, out, ms = [], [], []
+    nxt = tokens[:, :1]
+    with torch.no_grad():
+        for t in range(s + new_tokens):
+            if t < s:
+                nxt = tokens[:, t:t + 1]
+            pos = torch.full((b,), t, dtype=torch.int32,
+                             device=tokens.device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, state = decode_step(params, state, nxt, pos, cfg)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if t < s:
+                logits.append(lg[:, 0])
+            nxt = lg[:, :, :cfg.vocab].argmax(-1)
+            if t >= s - 1 and len(out) < new_tokens:
+                out.append(nxt)
+    gen = torch.cat(out, dim=1) if out else tokens[:, :0]
+    return torch.stack(logits, dim=1), gen, ms
+
+
+def frontend_deploy(torch, np, dev, fcfg, fparams, fstate):
+    """5k (a): 4 SyntheticVWW frames through the deploy-folded, 8-bit
+    frontend (B1 or B2, as the tuner picks), held to ``impl="plain"`` by
+    the count rule on the stem, then on every token whose counts all
+    agree.  Returns (the embeddings, the B1/B2 launches)."""
+    from repro_torch.core import bn_fold, frontend
+    from repro_torch.core import p2m_conv as core
+    from repro_torch.core.pixel_model import default_pixel_model
+    from repro_torch.data import SyntheticVWW
+    from repro_torch.kernels.p2m_conv import conv
+    from repro_torch.kernels.p2m_conv.ops import _coeff_tuple
+
+    ccfg = fcfg.conv
+    deploy = core.premix_deploy(bn_fold.deploy_params(
+        fparams["conv"], fstate["conv"], ccfg), ccfg)
+    frames = torch.from_numpy(SyntheticVWW(
+        image_size=fcfg.image_size, batch=MM_FRAMES, seed=SEED
+    ).batch_at(0)["images"]).to(dev)
+    blocks = core.deploy_conv_blocks(frames, ccfg, mode="quant")  # tuned
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        emb, same = frontend.apply_p2m_frontend(fparams, fstate, frames,
+                                                fcfg, deploy=deploy)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = kernel_counts()
+    stem = {k: launched[k] for k in ("p2m_conv_fused",
+                                     "p2m_conv_fused_pipelined")}
+    check(sum(stem.values()) == 1 and sum(launched.values()) == 1
+          and same is fstate,
+          f"5k (a): the frontend launched {launched}, not one B1 or B2")
+    check(tuple(emb.shape) == (MM_FRAMES, fcfg.tokens, fcfg.d_model)
+          and bool(torch.isfinite(emb).all()),
+          f"5k (a): embeddings {tuple(emb.shape)}")
+    print(f"[5k] (a) P2MFrontendConfig(): {fcfg.image_size}² frames, k = s "
+          f"= {ccfg.kernel}, pool {fcfg.pool}: {fcfg.tokens} tokens of "
+          f"{fcfg.token_feature_dim} features → d_model {fcfg.d_model}; "
+          f"the tuner's pick at ({MM_FRAMES}, {fcfg.image_size}, "
+          f"{fcfg.image_size}, 3) quant (block_h, block_n, depth) "
+          f"{tuple(blocks)}: {'B2' if blocks[2] >= 2 else 'B1'}; launches "
+          f"B1 {stem['p2m_conv_fused']}, B2 "
+          f"{stem['p2m_conv_fused_pipelined']}; {seconds * 1e3:.1f} ms "
+          f"warm tuner, cold frontend (host clock)")
+    # against the plain stem, on the same frames (not counted)
+    with torch.no_grad():
+        plain, _ = frontend.apply_p2m_frontend(fparams, fstate, frames, fcfg,
+                                               deploy=deploy, impl="plain")
+        fmap = core.apply_p2m_conv_deploy(deploy, frames, ccfg)
+        fmap_p = core.apply_p2m_conv_deploy(deploy, frames, ccfg,
+                                            impl="plain")
+        raw_p = conv.p2m_conv_raw_plain(
+            frames, deploy["w"], kernel=ccfg.kernel, stride=ccfg.stride,
+            coeffs=_coeff_tuple(default_pixel_model())).reshape(fmap.shape)
+    reset_kernel_counts()
+    v_lsb = ccfg.adc.v_lsb
+    rep = conv.quant_disagreement(fmap, fmap_p, raw_p, v_lsb)
+    check(rep["max_count_diff"] <= 1 and rep["share"] <= 1e-4
+          and rep["all_near_half"],
+          f"5k (a): the stem's counts against the plain stem's: {rep}")
+    agree = (torch.round(fmap / v_lsb) == torch.round(fmap_p / v_lsb))
+    tok_ok = frontend.pool_tokens(agree.float(), fcfg.pool).min(
+        dim=-1).values.bool()
+    err = float((emb - plain)[tok_ok].abs().max())
+    scale = float(plain.abs().max())
+    nonzero = float((fmap > 0).float().mean())
+    print(f"[5k] (a) stem vs the plain stem: {rep['n_diff']} of "
+          f"{fmap.numel()} counts differ (at half counts: "
+          f"{rep['all_near_half']}), {nonzero:.3f} of the counts nonzero; "
+          f"embeddings vs plain {err:.3e} of {scale:.3e} on "
+          f"{int(tok_ok.sum())} of {tok_ok.numel()} tokens whose counts all "
+          f"agree")
+    check(err <= MM_EMB_TOL * scale and int(tok_ok.sum())
+          >= tok_ok.numel() - rep["n_diff"],
+          f"5k (a): embeddings differ from the plain stem's by {err} of "
+          f"{scale}")
+    return emb, stem
+
+
+def vlm_decode_parts(torch, params, state, tokens, cfg, step_ms):
+    """5k (b): the VLM decode step's parts, each alone by CUDA events
+    (median of 10, L2 flushed) at the decode shape: a self layer's
+    attention (norm, projections, the cached attention) and its MLP, a
+    cross block on the cached image K/V, and the head.  Printed beside
+    the step and each part's weight read."""
+    from repro_torch.models import vlm
+    from repro_torch.models.layers import (
+        apply_mlp,
+        apply_norm,
+        cached_attention,
+        lm_head,
+    )
+    from repro_torch.tree import tree_map
+
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
+                        device=tokens.device)
+    lp = tree_map(lambda a: a[0, 0], params["self"])
+    cp = tree_map(lambda a: a[0], params["cross"])
+    pos = torch.full((tokens.shape[0],), tokens.shape[1] - 1,
+                     dtype=torch.int32, device=tokens.device)
+    kv = (state["cross"]["k"][0], state["cross"]["v"][0])
+    with torch.no_grad():
+        x = params["embed"]["table"][tokens[:, :1]]
+        fns = {
+            "self attention": lambda: cached_attention(
+                lp["attn"], apply_norm(lp["attn_norm"], x, cfg),
+                state["self"]["k"][0], state["self"]["v"][0], pos, cfg),
+            "self MLP": lambda: apply_mlp(
+                lp["mlp"], apply_norm(lp["mlp_norm"], x, cfg)),
+            "cross block": lambda: vlm._cross_block(cp, x, None, cfg, kv=kv),
+            "head": lambda: lm_head(params["embed"], x, cfg)}
+        ms = {k: cuda_ms(torch, fn, flush, reps=10) for k, fn in fns.items()}
+    del flush
+    n_groups, n_self = vlm._n_groups(cfg)
+    times = {"self attention": n_groups * n_self, "self MLP":
+             n_groups * n_self, "cross block": n_groups, "head": 1}
+    nbytes = {"self attention": 4 * sum(lp["attn"][k].numel() for k in
+                                        ("wq", "wk", "wv", "wo")),
+              "self MLP": 4 * sum(a.numel() for a in lp["mlp"].values()),
+              "cross block": 4 * (cp["attn"]["wq"].numel()
+                                  + cp["attn"]["wo"].numel()
+                                  + sum(a.numel() for a in
+                                        cp["mlp"].values())),
+              "head": 4 * params["embed"]["head"].numel()}
+    total = sum(ms[k] * times[k] for k in ms)
+    print(f"[5k] (b) the decode step's parts (CUDA events, median of 10, L2 "
+          f"flushed, batch {tokens.shape[0]}): "
+          + "; ".join(f"{k} {ms[k]:.4f} ms x {times[k]} (its weight read "
+                      f"{nbytes[k] / PEAK_BYTES_PER_S * 1e3:.4f})"
+                      for k in ms)
+          + f"; sum {total:.3f} of the step's {step_ms:.3f} ms (the rest: "
+          f"the host between launches)")
+    return {k: ms[k] for k in ms}
+
+
+def vlm_model(torch, np, dev, smi, emb):
+    """5k (b): Llama-3.2-Vision-11B whole on ``emb``, the frontend's
+    tokens, and on the config's own stub of n_image_tokens embeddings:
+    forward, `prefill_cross_kv`, decode over the prompt and greedy tokens,
+    each float32 run within ``DENSE_F64_TOL`` of the largest |float64
+    logit|; the image moves the logits by more than the float32 spread;
+    no kernel of the port launches."""
+    from repro_torch.common.pytree import param_count
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build_batch_transform
+    from repro_torch.models import vlm
+    from repro_torch.models.families import get_family
+
+    cfg = get_config(VLM_ARCH).replace(dtype=torch.float32)
+    fam = get_family(cfg)
+    t0 = time.perf_counter()
+    params, _ = fam.init(torch.Generator(dev).manual_seed(SEED), cfg)
+    # nonzero gates (zero at init, where the image path adds nothing)
+    gen = torch.Generator(dev).manual_seed(SEED + 5)
+    for gate in ("gate_attn", "gate_mlp"):
+        params["cross"][gate] = 0.5 + 0.5 * torch.rand(
+            params["cross"][gate].shape, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    n_groups, n_self = vlm._n_groups(cfg)
+    print(f"[5k] (b) {cfg.name}: {cfg.n_layers} layers ({n_groups} groups "
+          f"of {n_self} self layers + 1 gated cross layer), d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads ({cfg.n_kv_heads} KV), d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}; {n_params} parameters in the "
+          f"tree, {cfg.param_count_estimate()} by the reference's estimate, "
+          f"{4 * n_params / 1e9:.2f} GB fp32, initialized on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    print("[5k] (b) gates drawn from the seed (tanh of each scales its "
+          "branch): gate_attn "
+          + ", ".join(f"{float(g):.4f}" for g in params["cross"]["gate_attn"])
+          + "; gate_mlp "
+          + ", ".join(f"{float(g):.4f}" for g in params["cross"]["gate_mlp"]))
+    _, requests = lm_traffic(np, cfg.vocab, MM_FRAMES)
+    tokens = torch.tensor([r.prompt[:MM_PROMPT] for r in requests()],
+                          device=dev)
+    stub = torch.from_numpy(build_batch_transform(cfg, MM_FRAMES, MM_PROMPT)(
+        {})["image_embeds"]).to(dev)
+    out = {"n_params": n_params, "gb": 4 * n_params / 1e9}
+    reset_kernel_counts()
+    for tag, img in (("P²M tokens", emb), ("stub embeddings", stub)):
+        state, _ = fam.init_decode_state(cfg, MM_FRAMES,
+                                         MM_PROMPT + MM_NEW_TOKENS,
+                                         device=dev)
+        state["cross"] = vlm.prefill_cross_kv(params, img, cfg)
+        with torch.no_grad():
+            f32 = vlm.forward(params, tokens, img, cfg)[0]
+        dec, gen_toks, ms = teacher_decode(torch, vlm.decode_step, params,
+                                           state, tokens, cfg, MM_NEW_TOKENS)
+        f64 = vlm_forward_f64(torch, params, tokens, img, cfg)
+        spread, scale = logits_vs_f64(
+            f"(b) {tag} ({img.shape[1]} image tokens), all {MM_PROMPT} "
+            f"prompt positions, decode vs vlm.forward",
+            {"decode": dec, "forward": f32}, f64, cfg.vocab)
+        check(tuple(gen_toks.shape) == (MM_FRAMES, MM_NEW_TOKENS)
+              and bool(((gen_toks >= 0) & (gen_toks < cfg.vocab)).all()),
+              f"5k (b): greedy tokens {tuple(gen_toks.shape)}")
+        step_ms = statistics.median(ms[2:])
+        print(f"[5k] (b) {tag}: decode {MM_PROMPT} prompt + {MM_NEW_TOKENS} "
+              f"greedy tokens a row ({MM_FRAMES} rows), {len(ms)} steps; "
+              f"{smi}: decode step {step_ms:.3f} ms warm (host clock through "
+              f"a synchronize, median of {len(ms) - 2}), first {ms[0]:.1f} "
+              f"ms")
+        if tag == "P²M tokens":
+            out["parts"] = vlm_decode_parts(torch, params, state, tokens,
+                                            cfg, step_ms)
+            # the image matters: another frame's tokens a row
+            with torch.no_grad():
+                other = vlm.forward(params, tokens, img.roll(1, 0), cfg)[0]
+            moved = float((other - f32).abs().max())
+            print(f"[5k] (b) another frame's tokens a row move the logits by "
+                  f"{moved:.3e} ({moved / scale:.2e} of the largest "
+                  f"|logit|), against the float32 spread {spread:.3e}")
+            check(moved > spread, f"5k (b): the image moved the logits by "
+                  f"{moved}, not more than the spread {spread}")
+            out.update(step_ms=step_ms, spread=spread, moved=moved,
+                       tokens=gen_toks[0].tolist())
+        else:
+            out.update(stub_step_ms=step_ms, stub_spread=spread)
+        del f32, f64, dec, state
+    launched = kernel_counts()
+    check(not any(launched.values()),
+          f"5k (b): the VLM path launched kernels {launched}")
+    tree_ms, _, bounds = bounds_line(cfg, n_params)
+    out.update(tree_bound_ms=tree_ms, b7=launched["wkv_fused"])
+    print(f"[5k] (b) {smi}: decode step {out['step_ms']:.3f} ms beside the "
+          f"{bounds}; kernel launches {sum(launched.values())}")
+    return out
+
+
+def whisper_model(torch, np, dev, smi):
+    """5k (c): Whisper-tiny whole: `prefill_cross_kv` on 8 rows of stub
+    source frames at max_source_positions, then ``WHISPER_STEPS`` teacher-
+    forced decode steps against `whisper.forward` in float32 and in
+    float64 (the whole tree converted); no kernel of the port launches."""
+    from repro_torch.common.pytree import param_count
+    from repro_torch.configs import get_config
+    from repro_torch.models import whisper
+    from repro_torch.models.families import get_family
+    from repro_torch.tree import tree_map
+
+    cfg = get_config(WHISPER_ARCH).replace(dtype=torch.float32)
+    fam = get_family(cfg)
+    params, _ = fam.init(torch.Generator(dev).manual_seed(SEED), cfg)
+    n_params = param_count(params)
+    gen = torch.Generator(dev).manual_seed(SEED + 6)
+    src = torch.randn((WHISPER_ROWS, cfg.max_source_positions, cfg.d_model),
+                      generator=gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (WHISPER_ROWS, WHISPER_STEPS),
+                           generator=gen, device=dev)
+    print(f"[5k] (c) {cfg.name}: {cfg.n_encoder_layers} encoder + "
+          f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab} (padded "
+          f"{cfg.padded_vocab}); {n_params} parameters, "
+          f"{cfg.param_count_estimate()} by the reference's estimate, "
+          f"{4 * n_params / 1e9:.3f} GB fp32; {WHISPER_ROWS} rows of "
+          f"{cfg.max_source_positions} stub source frames")
+    reset_kernel_counts()
+    state, _ = fam.init_decode_state(cfg, WHISPER_ROWS, WHISPER_STEPS,
+                                     device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        state["cross"] = whisper.prefill_cross_kv(params, src, cfg)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    dec, _, ms = teacher_decode(torch, whisper.decode_step, params, state,
+                                tokens, cfg)
+    with torch.no_grad():
+        f32 = whisper.forward(params, src, tokens, cfg)[0]
+        p64 = tree_map(lambda a: a.double(), params)
+        f64 = whisper.forward(p64, src.double(), tokens,
+                              cfg.replace(dtype=torch.float64))[0]
+    launched = kernel_counts()
+    check(not any(launched.values()),
+          f"5k (c): the whisper path launched kernels {launched}")
+    spread, _ = logits_vs_f64(
+        f"(c) {WHISPER_STEPS} teacher-forced decode steps vs "
+        f"whisper.forward", {"decode": dec, "forward": f32}, f64, cfg.vocab)
+    step_ms = statistics.median(ms[2:])
+    print(f"[5k] (c) {smi}: prefill_cross_kv (encoder + {cfg.n_layers} "
+          f"cross K/V) {prefill_ms:.2f} ms cold; decode step {step_ms:.3f} ms "
+          f"(host clock through a synchronize, median of {len(ms) - 2}, "
+          f"batch {WHISPER_ROWS}); the weight read "
+          f"{4 * n_params / PEAK_BYTES_PER_S * 1e3:.4f} ms at "
+          f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s")
+    return {"n_params": n_params, "spread": spread, "step_ms": step_ms,
+            "prefill_ms": prefill_ms, "b7": launched["wkv_fused"]}
+
+
+def frontend_train(torch, np, dev, fcfg, fparams, fstate):
+    """5k (d): the frontend's train form on 8 frames (BN on batch
+    statistics): the gradient of a fixed scalar of the embeddings with
+    respect to θ, the BN affine and ``proj`` through `P2MConvFunction`
+    (B1 or B2 forward, B3 and B4 once) against the same run with
+    ``impl="plain"``, and the conv's backward on the run's own cotangent
+    within 1e-4.  Returns the launches."""
+    from repro_torch.core import frontend
+    from repro_torch.core import p2m_conv as core
+    from repro_torch.core.pixel_model import default_pixel_model
+    from repro_torch.data import SyntheticVWW
+
+    frames = torch.from_numpy(SyntheticVWW(
+        image_size=fcfg.image_size, batch=MM_TRAIN_FRAMES, seed=SEED + 1
+    ).batch_at(0)["images"]).to(dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 7)
+    probe = torch.randn((MM_TRAIN_FRAMES, fcfg.tokens, fcfg.d_model),
+                        generator=gen, device=dev)
+    real_conv_raw = core._conv_raw
+
+    def run(impl):
+        seen = {}
+
+        def conv_raw(*args):  # keep the conv's output and its cotangent
+            raw = real_conv_raw(*args)
+            seen["raw"] = raw
+            raw.register_hook(lambda g: seen.__setitem__("g_raw", g))
+            return raw
+
+        live = {"conv": {k: v.detach().clone().requires_grad_(True)
+                         for k, v in fparams["conv"].items()},
+                "proj": fparams["proj"].detach().clone().requires_grad_(True)}
+        core._conv_raw = conv_raw
+        try:
+            emb, new = frontend.apply_p2m_frontend(live, fstate, frames, fcfg,
+                                                   train=True, impl=impl)
+            loss = (emb * probe).sum()
+            leaves = {**live["conv"], "proj": live["proj"]}
+            grads = dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()))))
+        finally:
+            core._conv_raw = real_conv_raw
+        torch.cuda.synchronize()
+        return {"loss": float(loss.detach()), "emb": emb.detach(),
+                "state": new["conv"], "grads": grads, "g_raw": seen["g_raw"]}
+
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    cuda = run(None)
+    launched = kernel_counts()
+    plain = run("plain")
+    reset_kernel_counts()
+    stem = launched["p2m_conv_fused"] + launched["p2m_conv_fused_pipelined"]
+    check(stem == 1 and launched["p2m_bwd_dx"] == 1
+          and launched["p2m_bwd_dw"] == 1
+          and sum(launched.values()) == 3,
+          f"5k (d): the train form launched {launched}, not B1 or B2, B3 "
+          f"and B4 once each")
+    err_emb = float((cuda["emb"] - plain["emb"]).abs().max())
+    scale_emb = float(plain["emb"].abs().max())
+    print(f"[5k] (d) train form on {MM_TRAIN_FRAMES} frames (BN on batch "
+          f"statistics): launches {launched}; scalar {cuda['loss']:.6e} vs "
+          f"plain {plain['loss']:.6e}; embeddings {err_emb:.3e} of "
+          f"{scale_emb:.3e}; new BN state "
+          + ", ".join(f"{k} {float((cuda['state'][k] - plain['state'][k]).abs().max()):.3e}"
+                      for k in cuda["state"]))
+    check(err_emb <= MM_EMB_TOL * scale_emb
+          and all(torch.allclose(cuda["state"][k], plain["state"][k],
+                                 rtol=MM_EMB_TOL, atol=0)
+                  for k in cuda["state"]),
+          f"5k (d): train-form embeddings {err_emb} of {scale_emb}, or the "
+          f"BN state, differ from plain")
+    rel = {}
+    for k, g in plain["grads"].items():
+        err = float((cuda["grads"][k] - g).abs().max())
+        rel[k] = err / float(g.abs().max())
+        print(f"[5k] (d) d/d {k}: {err:.3e} of {float(g.abs().max()):.3e}")
+    check(max(rel.values()) <= MM_GRAD_TOL,
+          f"5k (d): gradients differ from the plain run's: {rel}")
+    conv_cotangent_check(
+        torch, "[5k] (d)", frames,
+        core._flat_weights(fparams["conv"]["theta"], fcfg.conv),
+        cuda["g_raw"], fcfg.conv, default_pixel_model())
+    reset_kernel_counts()
+    return launched
+
+
+def multimodal_path(torch, np, dev, smi):
+    """Phase 5k: (a) the P²M frontend at the reference's default config on
+    4 frames, deploy form, held to the plain stem; (b) Llama-3.2-Vision-11B
+    whole on its tokens and on the stub; (c) Whisper-tiny whole; (d) the
+    frontend's train form and its gradients through B3/B4; (e) the
+    launcher's and `SessionEngine`'s refusals.  The earlier phases' models
+    are freed first.  Returns what the summary and the kernel line read."""
+    import gc
+    import os
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import frontend
+    from repro_torch.models.families import get_family
+    from repro_torch.serving import SessionEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    fcfg = frontend.P2MFrontendConfig()
+    fparams = frontend.init_p2m_frontend(torch.Generator().manual_seed(SEED),
+                                         fcfg, device=dev)
+    fstate = frontend.init_p2m_frontend_state(fcfg, device=dev)
+    emb, deploy_launches = frontend_deploy(torch, np, dev, fcfg, fparams,
+                                           fstate)
+    torch.cuda.reset_peak_memory_stats()
+    out = {"vlm": vlm_model(torch, np, dev, smi, emb)}
+    print(f"[5k] (b) peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"allocated")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["encdec"] = whisper_model(torch, np, dev, smi)
+    train_launches = frontend_train(torch, np, dev, fcfg, fparams, fstate)
+    out["launches"] = {
+        k: deploy_launches.get(k, 0) + train_launches[k]
+        for k in ("p2m_conv_fused", "p2m_conv_fused_pipelined",
+                  "p2m_bwd_dx", "p2m_bwd_dw")}
+    # (e) the refusals on the card, at SMOKE
+    cfg = get_smoke_config(VLM_ARCH).replace(dtype=torch.float32)
+    params, _ = get_family(cfg).init(torch.Generator(dev).manual_seed(SEED),
+                                     cfg)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    try:
+        SessionEngine(params, cfg, max_batch=LM_MAX_BATCH, max_len=LM_MAX_LEN,
+                      device=dev)
+    except ValueError as exc:
+        refusal = str(exc)
+    else:
+        refusal = None
+    check(refusal is not None and "prefill" in refusal
+          and torch.cuda.memory_allocated() == before,
+          f"5k (e): SessionEngine on {cfg.name}: {refusal}")
+    print(f"[5k] (e) SessionEngine on {cfg.name} ({dev}): ValueError before "
+          f"allocating: {refusal[:110]}...")
+    del params
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+
+    def launch(argv):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", *argv],
+            capture_output=True, text=True, timeout=600, cwd=ROOT, env=env)
+        return proc, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(MM_LAUNCHERS)) as pool:
+        runs = list(pool.map(launch, MM_LAUNCHERS))
+    for argv, (proc, seconds) in zip(MM_LAUNCHERS, runs):
+        said = proc.stderr.strip().splitlines()[-1][:160] \
+            if proc.stderr.strip() else ""
+        check(proc.returncode != 0 and MM_REFUSAL in proc.stderr,
+              f"5k (e): launcher {' '.join(argv)} exited {proc.returncode}: "
+              f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        print(f"[5k] (e) python -m repro_torch.launch.serve {' '.join(argv)}: "
+              f"exit {proc.returncode} in {seconds:.1f} s: {said}")
+    return out
+
+
+def multimodal_only(torch, np, dev) -> int:
+    """``chip_smoke.py --multimodal``: phase 1, the builds of
+    ``p2m_conv.cu`` and ``p2m_bwd.cu`` (together) and phase 5k alone."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.p2m_conv import backward, conv
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = smi_line()
+    print(f"[1] card: {smi}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
+    with ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(conv.build_p2m_conv),
+                    pool.submit(backward.build_p2m_bwd)]:
+            job.result()
+    for name in ("p2m_conv", "p2m_bwd"):
+        print(f"[2] {name}.cu: nvcc {_build.BUILD_INFO[name][0]:.2f} s")
+    print(json.dumps(multimodal_path(torch, np, dev, smi)))
+    print(smi)
+    return 0
+
+
 def conv2d_yardstick(torch, images, wrows, k, s):
     """One cuDNN conv over the power stack [x, x², x³] (NCHW) with the
     premixed weights, which computes the fused conv's raw accumulation:
@@ -4199,6 +4815,8 @@ def main() -> int:
         return dense_only(torch, np, torch.device("cuda"))
     if sys.argv[1:] == ["--moe-rglru"]:
         return moe_rglru_only(torch, np, torch.device("cuda"))
+    if sys.argv[1:] == ["--multimodal"]:
+        return multimodal_only(torch, np, torch.device("cuda"))
 
     from repro_torch.configs.p2m_vww import (
         CONFIG,
@@ -4408,6 +5026,7 @@ def main() -> int:
     lm_train = lm_train_path(torch, np, dev, lm)
     dense = dense_path(torch, np, dev, smi)
     moe_rglru = moe_rglru_path(torch, np, dev, smi)
+    multimodal = multimodal_path(torch, np, dev, smi)
 
     # ------------------------------------------------------- phase 6
     train = train_path(torch, np, dev)
@@ -4529,7 +5148,8 @@ def main() -> int:
                                           else "B2"][name],
             "train": train["launches"][name],
             "stream": stream["where_launches"][name],
-            "door": door_launches(door, name)}
+            "door": door_launches(door, name),
+            "frontend": multimodal["launches"][name]}
         check(sum(stem_paths[name].values()) > 0,
               f"{name} launched no time on the main paths")
     kernels = [{
@@ -4565,8 +5185,10 @@ def main() -> int:
             "route": "cuda",
             "source": "src/repro_torch/kernels/p2m_conv/csrc/p2m_bwd.cu",
             "replaces": replaces,
-            "launches": train["launches"][name],
-            "launches_by_path": {"train": train["launches"][name]},
+            "launches": (train["launches"][name]
+                         + multimodal["launches"][name]),
+            "launches_by_path": {"train": train["launches"][name],
+                                 "frontend": multimodal["launches"][name]},
             "max_abs_err": bwd_err[name],
             **bwd_rows[name],
         })
@@ -4612,23 +5234,28 @@ def main() -> int:
         # the LM path: ServeEngine's and SessionEngine's prefill ticks;
         # the door's LM engine (phase 5h); the LM train steps (forward
         # and recompute, phase 5g (c)); none on the dense path (5i), the
-        # MoE path or the RG-LRU path (5j)
+        # MoE path or the RG-LRU path (5j), the VLM or Whisper (5k)
         "launches": (lm["launches"] + door_launches(door, "wkv_fused")
                      + lm_train["launches"] + dense["b7"]
-                     + sum(moe_rglru["b7"].values())),
+                     + sum(moe_rglru["b7"].values())
+                     + multimodal["vlm"]["b7"]
+                     + multimodal["encdec"]["b7"]),
         "launches_by_path": {"lm": lm["launches"],
                              "door": door_launches(door, "wkv_fused"),
                              "lm_train": lm_train["launches"],
                              "dense": dense["b7"],
                              "moe": sum(moe_rglru["b7"][name]
                                         for name, _ in MOE_CUT),
-                             "rglru": moe_rglru["b7"][RGLRU_ARCH]},
+                             "rglru": moe_rglru["b7"][RGLRU_ARCH],
+                             "vlm": multimodal["vlm"]["b7"],
+                             "encdec": multimodal["encdec"]["b7"]},
         "max_abs_err": wkv_err,
         **wkv_row,
     })
     check(len(kernels) == 7, f"{len(kernels)} kernels in the line")
     b7_paths = kernels[-1]["launches_by_path"]
-    check(all(b7_paths[path] == 0 for path in ("dense", "moe", "rglru")),
+    check(all(b7_paths[path] == 0
+              for path in ("dense", "moe", "rglru", "vlm", "encdec")),
           f"B7 launched on a path that has no WKV: {b7_paths}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -10,8 +10,12 @@ tree)``) into the port's tree of tensors on ``device``:
   flat deploy ``w`` (k·k·C, Co) in (kh, kw, C)-fastest order, ``fc``,
   and every BN vector, and every leaf of an LM's parameter or
   decode-state tree (`repro.models.rwkv6.init_rwkv`, `init_rwkv_state`,
-  `repro.models.transformer.init_lm`, `init_cache`),
-  since ``x @ W`` is ``x @ W`` in both frameworks (the 4-D ``lora_b`` is
+  `repro.models.transformer.init_lm`, `init_cache`, `repro.models.vlm.
+  init_vlm`, `init_vlm_cache`, `repro.models.whisper.init_whisper`,
+  `init_whisper_cache`) and of the P²M frontend's parameter and state
+  trees (`repro.core.frontend.init_p2m_frontend`, its ``proj`` and the
+  conv's ``theta``), since ``x @ W`` is ``x @ W`` in both frameworks (the
+  4-D ``lora_b`` and the VLM's (G, n_self, d, ·) self-layer weights are
   no ``w``).
 
 `train_state_from_reference` carries a whole train state across, a VWW

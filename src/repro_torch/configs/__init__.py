@@ -1,9 +1,9 @@
 """Model configurations of the port: the paper's P²M-VWW model
-(`configs/p2m_vww.py`) and the language models ported so far.
+(`configs/p2m_vww.py`) and every language, vision-language and
+encoder-decoder model of the reference.
 
 ``get_config(name)`` / ``get_smoke_config(name)`` mirror the reference's
-registry for the architectures the port has; any other architecture the
-reference knows raises "not ported yet".
+registry; an architecture it does not know raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -22,18 +22,13 @@ ARCH_IDS = [
     "recurrentgemma-9b",
     "whisper-tiny",
 ]
-#: Those the port has a module for.
-PORTED = ("qwen3-32b", "stablelm-1.6b", "qwen2-72b", "llama3.2-1b",
-          "qwen3-moe-30b-a3b", "mixtral-8x22b", "rwkv6-3b",
-          "recurrentgemma-9b")
+#: Those the port has a module for: all of them.
+PORTED = tuple(ARCH_IDS)
 
 
 def _load(name: str):
     if name not in ARCH_IDS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCH_IDS)}")
-    if name not in PORTED:
-        raise NotImplementedError(f"arch {name!r} is not ported yet; the "
-                                  f"port has {list(PORTED)}")
     module = name.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{module}")
 

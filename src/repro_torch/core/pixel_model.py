@@ -121,6 +121,14 @@ def fit_pixel_model(
                       read_noise_std=read_noise_std)
 
 
+def prune_pixel_model(model: PixelModel, threshold: float = 0.06,
+                      **fit_kwargs) -> PixelModel:
+    """Refit keeping only terms with |a_ij| ≥ threshold (re-optimized)."""
+    mask = np.abs(model.coeffs) >= threshold
+    return fit_pixel_model(degree_w=model.degree_w, degree_x=model.degree_x,
+                           term_mask=mask, **fit_kwargs)
+
+
 _DEFAULT: PixelModel | None = None
 
 

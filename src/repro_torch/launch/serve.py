@@ -12,7 +12,10 @@ engines serve: rwkv6-3b, the dense family (llama3.2-1b, stablelm-1.6b,
 qwen3-32b, qwen2-72b) and the MoE family (qwen3-moe-30b-a3b,
 mixtral-8x22b).  recurrentgemma-9b is ported, but its decode state keeps
 batch at axis 2, so `ServeEngine` refuses it with a ``cache_batch``
-ValueError, as the reference's launcher does.
+ValueError, as the reference's launcher does.  The vlm and encdec
+families (llama-3.2-vision-11b, whisper-tiny) are refused with the
+reference's message: they need a per-request prefill of their
+cross-attention K/V (`models/vlm.py`, `models/whisper.py`).
 
 Mixed LM + vision (+ video) traffic through the front door:
 

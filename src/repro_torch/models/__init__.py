@@ -1,2 +1,3 @@
 """Models of the port: the paper's MobileNetV2-VWW (`mobilenetv2`) and the
-RWKV-6 language model (`rwkv6`, through `families`)."""
+reference's language-model families (`rwkv6`, `transformer` with `moe`,
+`rglru`, `vlm`, `whisper`), each reached through `families`."""

@@ -9,8 +9,8 @@ Every family exposes:
   batch_keys                                    → input names the family consumes
   prefill (optional)                            → fused multi-token prefill
 
-Families the reference has and the port does not yet raise "not ported
-yet".
+Every family of the reference is here; `get_family` of another raises
+``KeyError``, as the reference's ``FAMILIES[cfg.family]``.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models import rglru, rwkv6, transformer
+from repro_torch.models import rglru, rwkv6, transformer, vlm, whisper
 from repro_torch.models.config import ModelConfig
 
 
@@ -62,6 +62,22 @@ def _rglru_loss(params, batch, cfg: ModelConfig):
                       "acc": _accuracy(logits.detach(), batch["targets"])}
 
 
+def _vlm_loss(params, batch, cfg: ModelConfig):
+    logits, aux = vlm.forward(params, batch["tokens"], batch["image_embeds"],
+                              cfg)
+    ce = cross_entropy(logits, batch["targets"])
+    return ce + aux, {"ce": ce, "aux": aux,
+                      "acc": _accuracy(logits.detach(), batch["targets"])}
+
+
+def _encdec_loss(params, batch, cfg: ModelConfig):
+    logits, aux = whisper.forward(params, batch["src_embeds"],
+                                  batch["tokens"], cfg)
+    ce = cross_entropy(logits, batch["targets"])
+    return ce + aux, {"ce": ce, "aux": aux,
+                      "acc": _accuracy(logits.detach(), batch["targets"])}
+
+
 def _lm_decode_state(cfg, batch, max_len, abstract=False, device=None):
     return transformer.init_cache(cfg, batch, max_len, abstract=abstract,
                                   device=device)
@@ -74,6 +90,16 @@ def _rwkv_decode_state(cfg, batch, max_len, abstract=False, device=None):
 def _rglru_decode_state(cfg, batch, max_len, abstract=False, device=None):
     return rglru.init_rglru_state(cfg, batch, max_len, abstract=abstract,
                                   device=device)
+
+
+def _vlm_decode_state(cfg, batch, max_len, abstract=False, device=None):
+    return vlm.init_vlm_cache(cfg, batch, max_len, abstract=abstract,
+                              device=device)
+
+
+def _encdec_decode_state(cfg, batch, max_len, abstract=False, device=None):
+    return whisper.init_whisper_cache(cfg, batch, max_len, abstract=abstract,
+                                      device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,15 +128,15 @@ FAMILIES: dict[str, Family] = {
                    prefill=rwkv6.prefill_step),
     "rglru": Family(rglru.init_rglru, _rglru_loss, rglru.decode_step,
                     _rglru_decode_state, ("tokens", "targets")),
+    "vlm": Family(vlm.init_vlm, _vlm_loss, vlm.decode_step,
+                  _vlm_decode_state, ("tokens", "targets", "image_embeds")),
+    "encdec": Family(whisper.init_whisper, _encdec_loss, whisper.decode_step,
+                     _encdec_decode_state,
+                     ("tokens", "targets", "src_embeds")),
 }
-#: The reference's other families, still to port.
-NOT_PORTED = ("vlm", "encdec")
 
 
 def get_family(cfg: ModelConfig) -> Family:
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet; "
-                                  f"the port has {sorted(FAMILIES)}")
     return FAMILIES[cfg.family]
 
 

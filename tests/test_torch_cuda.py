@@ -28,7 +28,11 @@ remat, once without, and its loss is within 1e-5 of the plain WKV's.
 The MoE layer (`models/moe.py::apply_moe`) and the RG-LRU SMOKE decode
 run no kernel of the port: on the card they equal the CPU within 1e-5
 of the largest value, a router tie included (the stable sort orders
-equal probabilities on both devices as `jax.lax.top_k` does).
+equal probabilities on both devices as `jax.lax.top_k` does).  The P²M
+frontend's deploy form launches B1 or B2 once and is held to its plain
+stem by the count rule; the SMOKE VLM and Whisper decode on the card
+equals their forward at the reference's tolerances and launches no
+kernel of the port.
 """
 import numpy as np
 import pytest
@@ -1353,3 +1357,92 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def test_frontend_deploy_on_the_card_matches_plain(cuda):
+    """The P²M frontend's deploy form on 8 frames of 80², pool 4, d_model
+    64 (16,384 counts, so the count rule's 1e-4 admits one flip): one
+    launch of B1 or B2 (as the tuner picks), the stem's counts against
+    ``impl="plain"`` by the count rule, the embeddings within 1e-5 on
+    every token whose counts all agree."""
+    from repro_torch.core import bn_fold, frontend
+    from repro_torch.core.p2m_conv import premix_deploy
+
+    cfg = frontend.P2MFrontendConfig(image_size=80, d_model=64, pool=4)
+    params = frontend.init_p2m_frontend(torch.Generator().manual_seed(0),
+                                        cfg, device=cuda)
+    state = frontend.init_p2m_frontend_state(cfg, device=cuda)
+    deploy = premix_deploy(bn_fold.deploy_params(
+        params["conv"], state["conv"], cfg.conv), cfg.conv)
+    imgs = torch.from_numpy(SyntheticVWW(image_size=80, batch=8, seed=0)
+                            .batch_at(0)["images"]).to(cuda)
+    frontend.apply_p2m_frontend(params, state, imgs, cfg, deploy=deploy)
+    before = (conv.p2m_conv_fused.launches
+              + conv.p2m_conv_fused.launches_pipelined)
+    with torch.no_grad():
+        emb, _ = frontend.apply_p2m_frontend(params, state, imgs, cfg,
+                                             deploy=deploy)
+    assert (conv.p2m_conv_fused.launches
+            + conv.p2m_conv_fused.launches_pipelined) == before + 1
+    plain, _ = frontend.apply_p2m_frontend(params, state, imgs, cfg,
+                                           deploy=deploy, impl="plain")
+    fmap = apply_p2m_conv_deploy(deploy, imgs, cfg.conv)
+    fmap_p = apply_p2m_conv_deploy(deploy, imgs, cfg.conv, impl="plain")
+    raw = conv.p2m_conv_raw_plain(imgs, deploy["w"], kernel=5, stride=5,
+                                  coeffs=COEFFS).reshape(fmap.shape)
+    rep = conv.quant_disagreement(fmap, fmap_p, raw, V_LSB)
+    assert rep["max_count_diff"] <= 1, rep
+    assert rep["n_diff"] <= 1e-4 * fmap.numel(), rep
+    assert rep["all_near_half"], rep
+    agree = (torch.round(fmap / V_LSB) == torch.round(fmap_p / V_LSB))
+    ok = frontend.pool_tokens(agree.float(), cfg.pool).min(-1).values.bool()
+    assert emb.shape == (8, cfg.tokens, 64)
+    assert float((emb - plain)[ok].abs().max()) <= \
+        1e-5 * float(plain.abs().max())
+
+
+@pytest.mark.parametrize("arch,s", [("llama-3.2-vision-11b", 12),
+                                    ("whisper-tiny", 10)])
+def test_multimodal_decode_on_the_card_matches_forward(cuda, arch, s):
+    """SMOKE VLM (nonzero gates) and Whisper on the card:
+    `prefill_cross_kv`, then token-by-token decode against the forward
+    (the reference's rtol 2e-4, atol 5e-4), and the forward against the
+    CPU's within 1e-5 of the largest value; no kernel of the port."""
+    from repro_torch.models import vlm, whisper
+
+    cfg = get_smoke_config(arch).replace(dtype=torch.float32)
+    family = get_family(cfg)
+    params, _ = family.init(torch.Generator().manual_seed(0), cfg)
+    mod = vlm if cfg.family == "vlm" else whisper
+    if mod is vlm:
+        for gate in ("gate_attn", "gate_mlp"):
+            params["cross"][gate] = torch.full_like(params["cross"][gate],
+                                                    0.8)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, s)))
+    n = cfg.n_image_tokens if mod is vlm else cfg.max_source_positions
+    emb = torch.from_numpy(rng.normal(0, 1, (2, n, cfg.d_model)).astype(
+        np.float32))
+
+    def forward(p, t, e):
+        with torch.no_grad():
+            return (vlm.forward(p, t, e, cfg) if mod is vlm
+                    else whisper.forward(p, e, t, cfg))[0]
+
+    pd = _to(params, cuda)
+    ref = forward(pd, toks.to(cuda), emb.to(cuda))
+    assert _max_rel(ref, forward(params, toks, emb)) <= 1e-5
+    state, _ = family.init_decode_state(cfg, 2, 32, device=cuda)
+    state["cross"] = mod.prefill_cross_kv(pd, emb.to(cuda), cfg)
+    wkv_before = wkv_kernel.wkv_fused.launches
+    stem_before = conv.p2m_conv_fused.launches
+    logits = []
+    with torch.no_grad():
+        for t in range(s):
+            lg, state = family.decode(pd, state, toks[:, t:t + 1].to(cuda),
+                                      torch.full((2,), t, device=cuda), cfg)
+            logits.append(lg[:, 0])
+    assert wkv_kernel.wkv_fused.launches == wkv_before
+    assert conv.p2m_conv_fused.launches == stem_before
+    np.testing.assert_allclose(torch.stack(logits, 1).cpu().numpy(),
+                               ref.cpu().numpy(), rtol=2e-4, atol=5e-4)

@@ -39,7 +39,7 @@ from repro_torch import compat
 from repro_torch.configs import PORTED, get_config, get_smoke_config
 from repro_torch.models import attention, layers, transformer
 from repro_torch.models.families import (
-    NOT_PORTED,
+    FAMILIES,
     get_family,
     validate_slot_layout,
 )
@@ -289,9 +289,13 @@ def test_dense_configs_match_reference():
                 theirs.param_count_estimate(), name
     # the tree adds 33 norm vectors of 2048: 1,235,814,400
     assert get_config("llama3.2-1b").param_count_estimate() == 1_235_746_816
-    assert "dense" not in NOT_PORTED and "vlm" in NOT_PORTED
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_family(get_smoke_config("llama3.2-1b").replace(family="vlm"))
+    # every family of the reference is ported; another is a KeyError, as
+    # the reference's FAMILIES[cfg.family]
+    assert {"dense", "moe", "vlm", "encdec"} <= set(FAMILIES)
+    assert get_family(get_smoke_config("llama3.2-1b").replace(
+        family="vlm")) is FAMILIES["vlm"]
+    with pytest.raises(KeyError):
+        get_family(get_smoke_config("llama3.2-1b").replace(family="cnn"))
 
 
 @pytest.mark.parametrize("arch", DENSE)

@@ -519,18 +519,18 @@ def test_session_length_cap_ends_conversation(lm):
 def test_session_engine_needs_a_ported_prefill_family(lm, family):
     """The mirror of `tests/test_sessions.py::
     test_session_engine_rejects_kv_cache_family`: a KV-cache family (dense,
-    moe) has no positionless prefill hook, so construction fails loudly,
-    with the reference's ValueError; a family not ported yet raises so."""
+    moe, vlm) has no positionless prefill hook, so construction fails
+    loudly, with the reference's ValueError."""
     if family in ("dense", "moe"):
         arch = "llama3.2-1b" if family == "dense" else "mixtral-8x22b"
         _, cfg, _, params = _load(arch)
-        with pytest.raises(ValueError, match="prefill"):
-            SessionEngine(params, cfg, max_batch=1, max_len=32,
-                          device="cpu")
     else:
-        _, cfg, _, params = lm
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            SessionEngine(params, cfg.replace(family="vlm"), device="cpu")
+        cfg = get_smoke_config("llama-3.2-vision-11b").replace(
+            dtype=torch.float32)
+        params, _ = get_family(cfg).init(torch.Generator().manual_seed(0),
+                                         cfg)
+    with pytest.raises(ValueError, match="prefill"):
+        SessionEngine(params, cfg, max_batch=1, max_len=32, device="cpu")
 
 
 def test_session_replay_is_deterministic(lm):

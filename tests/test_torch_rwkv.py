@@ -227,12 +227,17 @@ def test_configs_match_reference():
             assert ours.n_rwkv_heads == theirs.n_rwkv_heads
     cfg = get_config("rwkv6-3b")
     assert (cfg.wkv_impl, cfg.dtype) == ("cuda", torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("llama-3.2-vision-11b")
+    # the multimodal configs and families load (ported since the vlm and
+    # encdec slice); an unknown arch or family is a KeyError
+    vision = get_config("llama-3.2-vision-11b")
+    assert (vision.family, vision.n_layers) == ("vlm", 40)
+    assert get_family(vision).batch_keys[-1] == "image_embeds"
+    assert get_family(cfg.replace(family="encdec")).batch_keys[-1] == \
+        "src_embeds"
     with pytest.raises(KeyError):
         get_config("gpt-5")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_family(cfg.replace(family="vlm"))
+    with pytest.raises(KeyError):
+        get_family(cfg.replace(family="cnn"))
 
 
 def test_init_matches_reference_layout(model):
