@@ -197,6 +197,23 @@ no result:
    --smoke`` exit non-zero with the reference's refusal, and
    `SessionEngine` refuses the SMOKE VLM (``prefill``) before allocating
    anything;
+5l. scale-out of the vision path (`parallel`, `launch.mesh`,
+   `launch.world.spawn_world`; ranks are spawned processes, one
+   process tunes the stem for all of them): (a) a one-rank NCCL world on
+   cuda:0, mesh (1, 1): one data-parallel `make_vww_train_step` at
+   `CONFIG`, batch 32, `int8_ef`, against the single-process step, the
+   loss within 1e-6, params and BN within 1e-3, bit for bit or not
+   printed, B1 or B2, B3 and B4 once; (b) NCCL's refusal of two ranks on
+   one card, printed, then a two-rank gloo world, both ranks on cuda:0:
+   one step at 16 images a rank against the single-process step within
+   1e-3 on loss, params and BN, four more with finite losses, ``step``
+   5 and both ranks' params, EF error and BN equal bit for bit; the
+   sharded `VisionEngine` on phase 5's 24 requests, the where
+   `StreamEngine` on phase 5b's six streams, the gated engine's refusal
+   of a mesh and a `ReplicaPool` over two one-rank submeshes, each
+   against a single engine (rtol 1e-4, atol 1e-3; 1e-3); each rank's
+   launches by part and the worlds' wall times, two ranks sharing one
+   card (not a scaling figure);
 6. the training path: 6 steps of `make_vww_train_step` on `CONFIG` at
    batch 32 with the paper's `sgd(step_decay(...), momentum=0.9)`; every
    loss finite, each step launches B1 or B2 (as tuned), B3 and B4
@@ -236,7 +253,8 @@ no result:
    engine's time per prefill and per decode tick with their parts;
 10. one JSON line ``{"kernels": [...]}`` (B1-B7; the door's launches
     of B1/B2, B5 and B7 under ``launches_by_path["door"]``; the
-    frontend's of B1/B2, B3 and B4 under ``"frontend"``; B7's
+    frontend's of B1/B2, B3 and B4 under ``"frontend"``, the scale-out
+    worlds' ranks' under ``"scale_out"``; B7's
     ``"dense"``, ``"moe"``, ``"rglru"``, ``"vlm"`` and ``"encdec"``
     paths, each 0);
 11. the card's name and power limit as nvidia-smi gives them, then the
@@ -255,7 +273,8 @@ phase 5h alone, with phase 5's and 5b's main runs as its references
 ``python3 chip_smoke.py --moe-rglru`` phase 1 and phase 5j alone
 (`moe_rglru_only`); ``python3 chip_smoke.py --multimodal`` phase 1, the
 builds of ``p2m_conv.cu`` and ``p2m_bwd.cu`` and phase 5k alone
-(`multimodal_only`).
+(`multimodal_only`); ``python3 chip_smoke.py --scale-out`` phase 1, the
+same two builds and phase 5l alone (`scale_out_only`).
 """
 from __future__ import annotations
 
@@ -271,11 +290,11 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 SEED = 0
 REPS = 25
-# Published peaks of one H100 SXM at its full 700 W power limit
-# (NVIDIA's data sheet, dense): HBM3 bytes/s, fp32 FLOP/s outside the
-# tensor cores.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOPS = 67e12
+# Published peaks of one H100 SXM at its full 700 W power limit (NVIDIA's
+# data sheet, dense): HBM3 bytes/s, fp32 FLOP/s outside the tensor cores.
+# `main` reads them from `repro_torch.launch.mesh`, the port's roofline
+# denominators.
+PEAK_BYTES_PER_S = PEAK_FP32_FLOPS = None
 RAW_TOL = 1e-5
 PROBS_TOL = 1e-4
 
@@ -4791,6 +4810,429 @@ def door_only(torch, np, dev) -> int:
     return 0
 
 
+SCALE_OUT_STEPS = 5  # (b): one step held to the single process, four more
+SCALE_OUT_TOL = 1e-3  # params and BN against the single-process step
+SCALE_OUT_LOSS_TOL = 1e-6  # (a): the one-rank world's loss
+SCALE_OUT_TIMEOUT = 600.0  # seconds a world may take
+
+
+def scale_out_optimizer():
+    """Phase 5l's optimizer: the reference's sharded test's, with int8
+    error feedback on the step."""
+    from repro_torch.optim import constant, sgd
+
+    return sgd(constant(0.01), momentum=0.9)
+
+
+def scale_out_signatures(cfg, world: int) -> dict:
+    """The stem's tuner signatures phase 5l meets: the single-process
+    references' (training 32 raw, serving 8 and stream 4 quant) and a
+    rank's (its slice of each)."""
+    from repro_torch.configs.p2m_vww import (
+        SERVE_MAX_BATCH,
+        STREAM_MAX_SLOTS,
+        TRAIN_BATCH,
+    )
+    from repro_torch.core.pixel_model import default_pixel_model
+    from repro_torch.kernels.p2m_conv.ops import _coeff_tuple
+
+    p = cfg.p2m
+    sig = (cfg.image_size, cfg.image_size, 3, p.out_channels, p.kernel,
+           p.stride, _coeff_tuple(default_pixel_model()))
+    return {"training": (TRAIN_BATCH, *sig, "raw"),
+            "serving": (SERVE_MAX_BATCH, *sig, "quant"),
+            "stream": (STREAM_MAX_SLOTS, *sig, "quant"),
+            "rank training": (TRAIN_BATCH // world, *sig, "raw"),
+            "rank serving": (SERVE_MAX_BATCH // world, *sig, "quant"),
+            "rank stream": (STREAM_MAX_SLOTS // world, *sig, "quant")}
+
+
+def tree_digest(tree) -> str:
+    """sha256 over a tree's leaves' bytes in key order: equal digests, equal
+    bits."""
+    import hashlib
+
+    from repro_torch.tree import tree_leaves
+
+    h = hashlib.sha256()
+    for t in tree_leaves(tree):
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def host_arrays(tree):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.detach().cpu().numpy().copy(), tree)
+
+
+def scale_out_rank(rank, world, tune_entries, steps, engines,
+                   device="cuda"):
+    """Phase 5l in one rank (a spawned process on cuda:0): the
+    data-parallel VWW step at full width from the seed's weights, ``steps``
+    steps on the seed's batches, each rank on its slice; with ``engines``
+    the sharded vision engine, the where stream engine, the gated
+    refusal and a pool over two submeshes.  The tuner's decisions are
+    the parent's (``tune_entries``): a rank times nothing.  Returns what
+    the parent checks, and this rank's kernel launches by part."""
+    import torch
+
+    from repro_torch.configs.p2m_vww import CONFIG, TRAIN_BATCH
+    from repro_torch.data import SyntheticVWW
+    from repro_torch.kernels.p2m_conv import tune
+    from repro_torch.launch.mesh import make_debug_mesh, make_submeshes
+    from repro_torch.models.mobilenetv2 import init_mnv2
+    from repro_torch.parallel import use_plan, vision_plan_for
+    from repro_torch.parallel.sharding_utils import local_tree
+    from repro_torch.serving import (
+        ReplicaPool,
+        VisionEngine,
+        VisionRequest,
+        drive,
+    )
+    from repro_torch.train.vision import (
+        make_vww_train_step,
+        vww_train_shardings,
+        vww_train_state,
+    )
+    from repro_torch.video import DeltaGateConfig, StreamEngine, StreamRequest
+
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tune.load_cache_entries(tune_entries)
+    tuned = set(tune.cache_info())
+    mesh = make_debug_mesh(device=dev)
+    plan = vision_plan_for(mesh)
+    params, bn = init_mnv2(torch.Generator().manual_seed(SEED), CONFIG,
+                           device=dev)
+    opt = scale_out_optimizer()
+    state = vww_train_state(params, bn, opt.init(params),
+                            grad_compression="int8_ef")
+    step = make_vww_train_step(CONFIG, opt, grad_compression="int8_ef")
+    data = SyntheticVWW(image_size=CONFIG.image_size, batch=TRAIN_BATCH,
+                        seed=SEED)
+    out = {"losses": [], "step_ms": [], "launches": {}}
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    t_all = time.perf_counter()
+    with use_plan(plan):
+        _, b_sh = vww_train_shardings(state, data.batch_at(0), plan)
+        for i in range(steps):
+            local = local_tree(data.batch_at(i), b_sh)
+            t0 = time.perf_counter()
+            state, metrics = step(state, local)
+            torch.cuda.synchronize()
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["losses"].append(float(metrics["loss"]))
+            if i == 0:
+                out["local_batch"] = len(local["labels"])
+                out["first"] = {"params": host_arrays(state["params"]),
+                                "bn": host_arrays(state["bn"]),
+                                "acc": float(metrics["acc"])}
+                out["launches"]["first step"] = kernel_counts()
+    out["launches"]["train"] = kernel_counts()
+    out["step"] = state["step"]
+    out["digest"] = {"params": tree_digest(state["params"]),
+                     "ef": tree_digest(state["extras"]["ef_error"]),
+                     "bn": tree_digest(state["bn"])}
+    out["train_s"] = time.perf_counter() - t_all
+    if not engines:
+        out["tuned_in_rank"] = sorted(set(tune.cache_info()) - tuned)
+        return out
+
+    images = SyntheticVWW(image_size=CONFIG.image_size,
+                          batch=len(VISION_ARRIVALS),
+                          seed=SEED + 1).batch_at(0)["images"]
+
+    def vision_requests():
+        return [VisionRequest(uid=i, image=images[i], arrival_tick=t)
+                for i, t in enumerate(VISION_ARRIVALS)]
+
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    eng = VisionEngine(params, bn, CONFIG, mesh=mesh, device=dev)
+    drive(eng, vision_requests(), on_undrained="raise")
+    torch.cuda.synchronize()
+    out["vision_s"] = time.perf_counter() - t0
+    out["vision"] = {r.uid: r.probs for r in eng.completed}
+    out["vision_rows"] = eng._shards.rows.tolist()
+    out["vision_failed"] = len(eng.failed) + len(eng.evicted)
+    out["launches"]["vision"] = kernel_counts()
+
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    det = stream_head(torch, dev, CONFIG)
+    seng = StreamEngine(params, bn, CONFIG, det,
+                        gate=DeltaGateConfig(threshold=0.0), mesh=mesh,
+                        device=dev)
+    drive(seng, [StreamRequest(uid=i, frames=f) for i, f in
+                 enumerate(stream_frames(CONFIG.image_size))],
+          on_undrained="raise")
+    torch.cuda.synchronize()
+    out["stream_s"] = time.perf_counter() - t0
+    out["stream"] = {r.uid: r.frame_outputs for r in seng.completed}
+    out["stream_path"] = seng.stem_path
+    out["stream_rows"] = seng._shards.rows.tolist()
+    out["launches"]["stream"] = kernel_counts()
+    try:
+        StreamEngine(params, bn, CONFIG, det, mesh=mesh, stem_path="gated",
+                     device=dev)
+        out["gated_refusal"] = None
+    except ValueError as exc:
+        out["gated_refusal"] = str(exc)
+
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    subs = make_submeshes(2, device=dev)
+    pool = ReplicaPool(*(VisionEngine(params, bn, CONFIG, mesh=m, device=dev)
+                         for m in subs))
+    drive(pool, vision_requests(), on_undrained="raise")
+    torch.cuda.synchronize()
+    out["pool_s"] = time.perf_counter() - t0
+    out["pool"] = {r.uid: r.probs for r in pool.completed}
+    out["pool_completed"] = [len(r.completed) for r in pool.replicas]
+    out["launches"]["pool"] = kernel_counts()
+    out["tuned_in_rank"] = sorted(set(tune.cache_info()) - tuned)
+    return out
+
+
+def nccl_pair_rank(rank, world):
+    """One all-reduce over NCCL; with both ranks on one card NCCL refuses."""
+    import torch
+
+    x = torch.ones(1, device="cuda")
+    torch.distributed.all_reduce(x)
+    return float(x)
+
+
+def scale_out_path(torch, np, dev, smi):
+    """Phase 5l: scale-out of the vision path (`parallel`, `launch.mesh`)
+    on the card.  (a) a one-rank NCCL world (mesh (1, 1)): one DP step at
+    full width (`CONFIG`, batch 32, int8_ef) against the single-process
+    step, the loss within 1e-6, params and BN within 1e-3, bit for bit or
+    not; (b) NCCL's refusal of two ranks on one card, then a two-rank
+    gloo world, both ranks on cuda:0: one DP step at 16 images a rank
+    against the single-process step within 1e-3 on loss, params and BN,
+    four more with finite losses and both ranks' params, EF error and BN
+    equal bit for bit; `VisionEngine` on a (2, 1) mesh serving phase 5's
+    24 requests, the where `StreamEngine` on phase 5b's six streams, the
+    gated engine's refusal and a `ReplicaPool` over two one-rank
+    submeshes, each against a single engine in this process.  Returns the
+    kernels' launches on the path, both worlds' ranks summed."""
+    from repro_torch.configs.p2m_vww import CONFIG, TRAIN_BATCH
+    from repro_torch.data import SyntheticVWW
+    from repro_torch.kernels.p2m_conv import tune
+    from repro_torch.launch.world import spawn_world
+    from repro_torch.models.mobilenetv2 import init_mnv2
+    from repro_torch.serving import VisionEngine, VisionRequest, drive
+    from repro_torch.train.vision import make_vww_train_step, vww_train_state
+    from repro_torch.video import DeltaGateConfig, StreamEngine, StreamRequest
+
+    # the tuner decides here, once, for the references and every rank
+    for name, args in scale_out_signatures(CONFIG, 2).items():
+        best = tune.get_conv_blocks(*args, device=dev)
+        print(f"[5l] tuner at the {name} signature {args[:7]} mode "
+              f"{args[8]}: {tuple(best)}")
+    entries = tune.cache_entries()
+
+    # the single-process references, from the same seeds
+    params, bn = init_mnv2(torch.Generator().manual_seed(SEED), CONFIG,
+                           device=dev)
+    opt = scale_out_optimizer()
+    state = vww_train_state(params, bn, opt.init(params),
+                            grad_compression="int8_ef")
+    batch = SyntheticVWW(image_size=CONFIG.image_size, batch=TRAIN_BATCH,
+                         seed=SEED).batch_at(0)
+    ref, ref_m = make_vww_train_step(CONFIG, opt, grad_compression="int8_ef")(
+        state, batch)
+    ref = {"params": host_arrays(ref["params"]), "bn": host_arrays(ref["bn"]),
+           "loss": float(ref_m["loss"]), "acc": float(ref_m["acc"])}
+    images = SyntheticVWW(image_size=CONFIG.image_size,
+                          batch=len(VISION_ARRIVALS),
+                          seed=SEED + 1).batch_at(0)["images"]
+    single = VisionEngine(params, bn, CONFIG, device=dev)
+    drive(single, [VisionRequest(uid=i, image=images[i], arrival_tick=t)
+                   for i, t in enumerate(VISION_ARRIVALS)],
+          on_undrained="raise")
+    single_probs = {r.uid: r.probs for r in single.completed}
+    sstream = StreamEngine(params, bn, CONFIG, stream_head(torch, dev, CONFIG),
+                           gate=DeltaGateConfig(threshold=0.0),
+                           stem_path="where", device=dev)
+    drive(sstream, [StreamRequest(uid=i, frames=f) for i, f in
+                    enumerate(stream_frames(CONFIG.image_size))],
+          on_undrained="raise")
+    single_stream = {r.uid: r.frame_outputs for r in sstream.completed}
+    del params, bn, state, single, sstream
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    def max_diff(a, b) -> float:
+        if isinstance(a, dict):
+            return max(max_diff(a[k], b[k]) for k in a)
+        return float(np.abs(np.asarray(a, np.float64)
+                            - np.asarray(b, np.float64)).max())
+
+    def bitwise(a, b) -> bool:
+        if isinstance(a, dict):
+            return all(bitwise(a[k], b[k]) for k in a)
+        return np.array_equal(a, b)
+
+    def hold_first_step(tag, res, loss_tol):
+        loss = res["losses"][0]
+        pd = max_diff(res["first"]["params"], ref["params"])
+        bd = max_diff(res["first"]["bn"], ref["bn"])
+        same = (bitwise(res["first"]["params"], ref["params"])
+                and bitwise(res["first"]["bn"], ref["bn"])
+                and loss == ref["loss"])
+        print(f"[5l] {tag}: step 1 on {res['local_batch']} images a rank: "
+              f"loss {loss:.7f} vs single process {ref['loss']:.7f} "
+              f"(|diff| {abs(loss - ref['loss']):.3e}), acc "
+              f"{res['first']['acc']:.4f} vs {ref['acc']:.4f}; params max "
+              f"|diff| {pd:.3e}, BN {bd:.3e}; bit for bit: {same}")
+        check(abs(loss - ref["loss"]) <= loss_tol,
+              f"5l {tag}: loss {loss} vs {ref['loss']}")
+        check(pd <= SCALE_OUT_TOL and bd <= SCALE_OUT_TOL,
+              f"5l {tag}: params differ by {pd}, BN by {bd}")
+        first = res["launches"]["first step"]
+        check(first["p2m_conv_fused"] + first["p2m_conv_fused_pipelined"]
+              == 1 and first["p2m_bwd_dx"] == 1 and first["p2m_bwd_dw"] == 1,
+              f"5l {tag}: first step's launches {first}")
+        check(not res["tuned_in_rank"],
+              f"5l {tag}: a rank tuned {res['tuned_in_rank']}")
+
+    # (a) one rank over NCCL
+    on_card = dev.type == "cuda"
+    card = 0 if on_card else None
+    t0 = time.perf_counter()
+    (one,) = spawn_world(scale_out_rank, 1,
+                         backend="nccl" if on_card else "gloo",
+                         cuda_index=card, timeout=SCALE_OUT_TIMEOUT,
+                         args=(entries, 1, False, dev.type))
+    one_s = time.perf_counter() - t0
+    hold_first_step("(a) one rank, NCCL, mesh (1, 1)", one,
+                    SCALE_OUT_LOSS_TOL)
+    print(f"[5l] (a) {smi}: world wall {one_s:.2f} s (spawn, NCCL init, one "
+          f"step {one['step_ms'][0]:.1f} ms, host clock); launches "
+          f"{one['launches']['train']}")
+
+    # (b) two ranks on one card: NCCL refuses, gloo serves
+    try:
+        spawn_world(nccl_pair_rank, 2, backend="nccl", cuda_index=card,
+                    timeout=120)
+        refusal = "NCCL accepted two ranks on one card"
+    except RuntimeError as exc:
+        text = str(exc).splitlines()
+        lines = ([ln.strip() for ln in text if "Duplicate GPU" in ln]
+                 or [ln.strip() for ln in text if "ncclInvalidUsage" in ln]
+                 or text[:1])
+        refusal = lines[0]
+    print(f"[5l] (b) NCCL, two ranks on cuda:0: {refusal[:300]}; the "
+          "two-rank world runs over gloo")
+    t0 = time.perf_counter()
+    two = spawn_world(scale_out_rank, 2, backend="gloo", cuda_index=card,
+                      args=(entries, SCALE_OUT_STEPS, True, dev.type),
+                      timeout=SCALE_OUT_TIMEOUT)
+    two_s = time.perf_counter() - t0
+    for rank, res in enumerate(two):
+        hold_first_step(f"(b) rank {rank} of 2, gloo", res, SCALE_OUT_TOL)
+        check(res["step"] == SCALE_OUT_STEPS
+              and all(np.isfinite(res["losses"])),
+              f"5l (b) rank {rank}: step {res['step']}, losses "
+              f"{res['losses']}")
+        check(res["digest"] == two[0]["digest"]
+              and res["losses"] == two[0]["losses"],
+              f"5l (b): rank {rank}'s state differs from rank 0's")
+        train = res["launches"]["train"]
+        check(train["p2m_conv_fused"] + train["p2m_conv_fused_pipelined"]
+              == train["p2m_bwd_dx"] == train["p2m_bwd_dw"]
+              == SCALE_OUT_STEPS, f"5l (b) rank {rank}: launches {train}")
+    print(f"[5l] (b) {SCALE_OUT_STEPS} steps: losses "
+          f"{[round(x, 6) for x in two[0]['losses']]}, step "
+          f"{two[0]['step']}; both ranks' params, EF error and BN equal bit "
+          f"for bit (sha256 {two[0]['digest']['params'][:16]}...)")
+
+    for rank, res in enumerate(two):
+        check(sorted(res["vision"]) == list(range(len(VISION_ARRIVALS)))
+              and not res["vision_failed"],
+              f"5l (b) rank {rank}: vision completed {sorted(res['vision'])}")
+        worst = max(float(np.abs(res["vision"][u] - p).max())
+                    for u, p in single_probs.items())
+        check(all(np.allclose(res["vision"][u], p, rtol=1e-4, atol=1e-3)
+                  for u, p in single_probs.items()),
+              f"5l (b) rank {rank}: sharded vision differs by {worst}")
+        print(f"[5l] (b) rank {rank}: VisionEngine on mesh (2, 1), slots "
+              f"{res['vision_rows']} here: 24 requests vs a single engine, "
+              f"probs max |diff| {worst:.3e}; launches "
+              f"{res['launches']['vision']}")
+        check(res["stream_path"] == "where"
+              and sorted(res["stream"]) == sorted(single_stream),
+              f"5l (b) rank {rank}: stream {res['stream_path']} "
+              f"{sorted(res['stream'])}")
+        sworst = max(float(np.abs(np.asarray(x) - np.asarray(y)).max())
+                     for u, frames in single_stream.items()
+                     for want, got in zip(frames, res["stream"][u])
+                     for x, y in zip(want, got))
+        check(sworst <= 1e-3, f"5l (b) rank {rank}: stream differs by "
+              f"{sworst}")
+        check(res["gated_refusal"] is not None
+              and "needs mesh=None" in res["gated_refusal"],
+              f"5l (b) rank {rank}: the gated engine took a mesh")
+        print(f"[5l] (b) rank {rank}: where StreamEngine, slots "
+              f"{res['stream_rows']} here: boxes and scores max |diff| "
+              f"{sworst:.3e} vs a single where engine; launches "
+              f"{res['launches']['stream']}; gated + mesh: "
+              f"{res['gated_refusal'][:60]}...")
+        pworst = max(float(np.abs(res["pool"][u] - p).max())
+                     for u, p in single_probs.items())
+        check(sorted(res["pool"]) == sorted(single_probs)
+              and all(np.allclose(res["pool"][u], p, rtol=1e-4, atol=1e-3)
+                      for u, p in single_probs.items()),
+              f"5l (b) rank {rank}: the pool differs by {pworst}")
+        print(f"[5l] (b) rank {rank}: ReplicaPool over two one-rank "
+              f"submeshes, completed by replica {res['pool_completed']}, "
+              f"probs max |diff| {pworst:.3e}; launches "
+              f"{res['launches']['pool']}")
+        steps_ms = [round(x, 1) for x in res["step_ms"]]
+        print(f"[5l] (b) rank {rank}: {smi}, two ranks sharing one card (not "
+              f"a scaling figure): steps {steps_ms} ms, train "
+              f"{res['train_s']:.2f} s, vision {res['vision_s']:.2f} s, "
+              f"stream {res['stream_s']:.2f} s, pool {res['pool_s']:.2f} s "
+              "(host clock)")
+    print(f"[5l] (b) world wall {two_s:.2f} s, spawn and gloo init included")
+
+    launches = {name: 0 for name in kernel_counts()}
+    for res in [one, *two]:
+        for part in ("train", "vision", "stream", "pool"):
+            for name, n in res["launches"].get(part, {}).items():
+                launches[name] += n
+    print(f"[5l] kernel launches on the scale-out path (both worlds, every "
+          f"rank): {launches}")
+    return {"launches": launches, "one_s": one_s, "two_s": two_s}
+
+
+def scale_out_only(torch, np, dev) -> int:
+    """``chip_smoke.py --scale-out``: phase 1, the builds of
+    ``p2m_conv.cu`` and ``p2m_bwd.cu`` (together) and phase 5l alone."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.p2m_conv import backward, conv
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = smi_line()
+    print(f"[1] card: {smi}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
+    with ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(conv.build_p2m_conv),
+                    pool.submit(backward.build_p2m_bwd)]:
+            job.result()
+    for name in ("p2m_conv", "p2m_bwd"):
+        print(f"[2] {name}.cu: nvcc {_build.BUILD_INFO[name][0]:.2f} s")
+    print(json.dumps(scale_out_path(torch, np, dev, smi)))
+    print(smi)
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4803,6 +5245,12 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    global PEAK_BYTES_PER_S, PEAK_FP32_FLOPS
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_FP32
+
+    PEAK_BYTES_PER_S, PEAK_FP32_FLOPS = HBM_BW, PEAK_FLOPS_FP32
+    if sys.argv[1:] == ["--scale-out"]:
+        return scale_out_only(torch, np, torch.device("cuda"))
     if sys.argv[1:] == ["--b4"]:
         return b4_only(torch, np, torch.device("cuda"))
     if sys.argv[1:] == ["--b1b6"]:
@@ -5027,6 +5475,7 @@ def main() -> int:
     dense = dense_path(torch, np, dev, smi)
     moe_rglru = moe_rglru_path(torch, np, dev, smi)
     multimodal = multimodal_path(torch, np, dev, smi)
+    scale_out = scale_out_path(torch, np, dev, smi)
 
     # ------------------------------------------------------- phase 6
     train = train_path(torch, np, dev)
@@ -5149,7 +5598,8 @@ def main() -> int:
             "train": train["launches"][name],
             "stream": stream["where_launches"][name],
             "door": door_launches(door, name),
-            "frontend": multimodal["launches"][name]}
+            "frontend": multimodal["launches"][name],
+            "scale_out": scale_out["launches"][name]}
         check(sum(stem_paths[name].values()) > 0,
               f"{name} launched no time on the main paths")
     kernels = [{
@@ -5186,9 +5636,11 @@ def main() -> int:
             "source": "src/repro_torch/kernels/p2m_conv/csrc/p2m_bwd.cu",
             "replaces": replaces,
             "launches": (train["launches"][name]
-                         + multimodal["launches"][name]),
+                         + multimodal["launches"][name]
+                         + scale_out["launches"][name]),
             "launches_by_path": {"train": train["launches"][name],
-                                 "frontend": multimodal["launches"][name]},
+                                 "frontend": multimodal["launches"][name],
+                                 "scale_out": scale_out["launches"][name]},
             "max_abs_err": bwd_err[name],
             **bwd_rows[name],
         })

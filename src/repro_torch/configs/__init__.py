@@ -3,11 +3,14 @@
 encoder-decoder model of the reference.
 
 ``get_config(name)`` / ``get_smoke_config(name)`` mirror the reference's
-registry; an architecture it does not know raises ``KeyError``.
+registry; an architecture it does not know raises ``KeyError``.  The
+reference's cell shapes (`configs.shapes`) come with them.
 """
 from __future__ import annotations
 
 import importlib
+
+from repro_torch.configs.shapes import SHAPES, ShapeSpec, applicable, cells
 
 #: The reference's architecture ids (`repro.configs.ARCH_IDS`).
 ARCH_IDS = [
@@ -41,4 +44,5 @@ def get_smoke_config(name: str):
     return _load(name).SMOKE
 
 
-__all__ = ["ARCH_IDS", "PORTED", "get_config", "get_smoke_config"]
+__all__ = ["ARCH_IDS", "PORTED", "SHAPES", "ShapeSpec", "applicable", "cells",
+           "get_config", "get_smoke_config"]

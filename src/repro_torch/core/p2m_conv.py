@@ -45,6 +45,7 @@ from repro_torch.kernels.p2m_conv.ops import (
     p2m_conv,
     p2m_matmul_plain,
 )
+from repro_torch.parallel.collectives import batch_moments
 
 IMPLS = ("cuda", "plain", "patches")
 
@@ -161,8 +162,10 @@ def apply_p2m_conv_train(
     """Train-form forward: conv(g) → BN → saturating ReLU.
 
     With ``train`` BN normalizes by the batch's mean and population
-    variance and the new state is ``0.9·old + 0.1·batch`` (momentum
-    ``cfg.bn_momentum``); otherwise it uses the running statistics.  Read
+    variance (over every rank's slice of the batch inside
+    `parallel.collectives.reduce_batch_over`) and the new state is
+    ``0.9·old + 0.1·batch`` (momentum ``cfg.bn_momentum``); otherwise it
+    uses the running statistics.  Read
     noise (``model.read_noise_std``) is drawn from ``generator`` when one
     is given.  ``impl`` selects the conv (`_resolve_impl`).
 
@@ -182,8 +185,7 @@ def apply_p2m_conv_train(
         raw = raw + model.read_noise_std * noise.to(raw.device)
 
     if train:
-        mean = raw.mean(dim=0)
-        var = raw.var(dim=0, correction=0)
+        mean, var = batch_moments(raw, (0,))
         mom = cfg.bn_momentum
         new_state = {
             "bn_mean": mom * state["bn_mean"] + (1 - mom) * mean.detach(),

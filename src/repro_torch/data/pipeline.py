@@ -5,9 +5,11 @@ The pipeline's only state is its integer ``step`` cursor (datasets are
 addressable by step), so checkpoint/restore and restarts are exact: save
 ``pipeline.state_dict()``, restore with ``load_state_dict``.  Prefetch
 runs the (numpy) generation of the next batches on a thread.  With
-``device`` set, each batch array leaves `__next__` as a tensor on that
-device; without it, as the dataset's numpy array.  (The reference's
-``sharding_fn`` comes with scale-out.)
+``sharding_fn(name, array)`` (a `parallel.NamedSharding` a leaf, e.g.
+from `parallel.sharding_utils.batch_shardings`) each array leaves as this
+rank's slice of it, as the reference's ``jax.device_put`` places it; with
+``device`` set, as a tensor on that device; without either, as the
+dataset's numpy array.
 """
 from __future__ import annotations
 
@@ -22,10 +24,12 @@ class DataPipeline:
     def __init__(self, dataset: Any, *, start_step: int = 0,
                  prefetch: int = 2,
                  transform: Callable[[dict], dict] | None = None,
+                 sharding_fn: Callable[[str, Any], Any] | None = None,
                  device=None):
         self._dataset = dataset
         self._step = start_step
         self._transform = transform
+        self._sharding_fn = sharding_fn
         self._device = None if device is None else torch.device(device)
         self._prefetch_n = prefetch
         self._q: queue.Queue | None = None
@@ -89,6 +93,9 @@ class DataPipeline:
         return batch
 
     def _place(self, batch: dict) -> dict:
+        if self._sharding_fn is not None:
+            batch = {k: self._sharding_fn(k, v).local(v)
+                     for k, v in batch.items()}
         if self._device is None:
             return batch
         return {k: torch.as_tensor(v).to(self._device)

@@ -34,6 +34,9 @@ the conv) the depth menu swept.  A signature is timed once a process;
 every later call is a dict lookup, so the tuner adds one-off latency to
 the first call of a signature, never steady-state cost.  Tuning launches
 are not the caller's: the kernels' launch counters are restored after.
+Ranks that share one card would time candidates against each other and
+could pick differently: one process tunes, and the ranks load its
+entries (`cache_entries`, `load_cache_entries`).
 
 Tuning is on by default on a CUDA device (`enabled`), and off elsewhere:
 timing the plain twins on the CPU would say nothing of the kernels.  Off,
@@ -418,6 +421,20 @@ def cache_info() -> dict[str, tuple]:
 
 def cache_clear() -> None:
     _CACHE.clear()
+
+
+def cache_entries() -> dict:
+    """Every tuned entry (signature → winner, timings and decision
+    record): what `load_cache_entries` installs in another process, so
+    that ranks sharing one card take one process's decisions instead of
+    timing candidates against each other."""
+    return dict(_CACHE)
+
+
+def load_cache_entries(entries: dict) -> None:
+    """Serve the winners of ``entries`` (from `cache_entries`) from now
+    on; their signatures are not timed again in this process."""
+    _CACHE.update(entries)
 
 
 def cache_dump(path: str) -> None:

@@ -9,7 +9,10 @@ float32 as the reference's launcher casts it, on random weights from seed
 0 drawn on a generator on the device.  It runs on the GPU unless
 ``--device`` names another.  The step updates the state in place
 (`train/step.py`), the counterpart of the reference's donated jit.
-``--model-parallel`` above 1 needs scale-out, which is not ported yet.
+``--model-parallel`` above 1 needs the LM path's scale-out (the FSDP/TP
+train step), which is not ported yet: the port's mesh, plans and cell
+specs (`launch.mesh`, `parallel`, `launch.specs`) are, and the
+data-parallel VWW step (`train.vision`).
 """
 from __future__ import annotations
 
@@ -64,8 +67,9 @@ def main(argv=None) -> Trainer:
                     help="torch device; default the GPU")
     args = ap.parse_args(argv)
     if args.model_parallel > 1:
-        raise SystemExit("--model-parallel > 1 needs A12 (scale-out), "
-                         "which is not ported yet")
+        raise SystemExit("--model-parallel > 1 needs the LM train step "
+                         "under a plan (ROADMAP A12b), which is not "
+                         "ported yet")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = cfg.replace(dtype=torch.float32)

@@ -6,15 +6,34 @@ initialized tensor and its logical axis names; ``split_tree`` separates a
 nested dict of Specs into (params, axes) trees.  Draws come from an
 explicit `torch.Generator` on the target device, so a large model is
 initialized where it lives and never passes through the host.  With
-``abstract=True`` the value is a tensor on the ``meta`` device: a shape
-and a dtype, no storage (`families.validate_slot_layout` reads the axes).
+``abstract=True``, or inside `abstract_init`, the value is a tensor on
+the ``meta`` device: a shape and a dtype, no storage
+(`families.validate_slot_layout` reads the axes; `launch.specs` builds
+whole cells so).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Any
 
 import torch
+
+_ABSTRACT = threading.local()
+
+
+@contextlib.contextmanager
+def abstract_init():
+    """Inside this context every `make` returns a ``meta`` tensor, so a
+    family's ``init`` allocates nothing: init at production scale for the
+    cell specs."""
+    prev = getattr(_ABSTRACT, "on", False)
+    _ABSTRACT.on = True
+    try:
+        yield
+    finally:
+        _ABSTRACT.on = prev
 
 
 @dataclasses.dataclass
@@ -42,7 +61,7 @@ def make(
     """
     if len(shape) != len(axes):
         raise ValueError(f"shape {shape} and axes {axes} differ in rank")
-    if abstract:
+    if abstract or getattr(_ABSTRACT, "on", False):
         return Spec(torch.empty(shape, dtype=dtype, device="meta"), axes)
     if generator is not None:
         device = generator.device

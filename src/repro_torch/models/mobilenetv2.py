@@ -36,6 +36,7 @@ from repro_torch.core.p2m_conv import (
     init_p2m_state,
 )
 from repro_torch.core.pixel_model import PixelModel
+from repro_torch.parallel.collectives import batch_moments
 
 # (expansion t, out channels c, repeats n, first-block stride s)
 MNV2_BLOCKS = [
@@ -119,11 +120,11 @@ def _conv(x, w, stride=1, groups=1):
 
 def _bn(x, p, s, train: bool, momentum=0.9, eps=1e-5):
     """BN of an NCHW tensor, in the reference's order of ops: on the
-    batch's statistics (population variance) with ``train``, else on the
-    running ones.  Returns (y, new state)."""
+    batch's statistics (population variance; over every rank's slice of
+    the batch inside `collectives.reduce_batch_over`) with ``train``,
+    else on the running ones.  Returns (y, new state)."""
     if train:
-        mean = x.mean(dim=(0, 2, 3))
-        var = x.var(dim=(0, 2, 3), correction=0)
+        mean, var = batch_moments(x, (0, 2, 3))
         new_s = {
             "mean": momentum * s["mean"] + (1 - momentum) * mean.detach(),
             "var": momentum * s["var"] + (1 - momentum) * var.detach(),

@@ -10,10 +10,11 @@ A token beyond an expert's capacity drops: it adds ``x · 0`` at the last
 position and its combine weight is 0 (capacity-factor semantics); the
 Switch aux loss keeps the load flat.
 
-The reference's expert-parallel ``apply_moe_shard_map`` needs a mesh,
-which the port does not have yet (ROADMAP A12); with no mesh the
-reference takes the path below whatever ``cfg.moe_impl`` says, and so
-does the port.
+The reference's expert-parallel ``apply_moe_shard_map`` (local experts
+on a mesh's model axis) is part of the LM path's scale-out, which is not
+ported yet (ROADMAP A12b); the port has the mesh and the plans
+(`launch.mesh`, `parallel`).  With no mesh the reference takes the path
+below whatever ``cfg.moe_impl`` says, and so does the port.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Replica pools: N adapters of one modality behind one engine surface;
-port of `repro.serving.pool` (imports rewritten, no mesh).
+port of `repro.serving.pool` (imports rewritten).
 
 ``ReplicaPool`` wraps N `SlotEngine` adapters (same modality, same
 ``request_type``, same ``tick_cost``) and presents the exact interface
@@ -23,9 +23,14 @@ and queued traffic drains onto its ``failed`` ledger — and excluded
 from dispatch while the siblings keep serving.  The pool as a whole
 reports ``halted`` only when every replica is down.
 
-Scale-out: each replica is an ordinary adapter on its own ``device``.
-The reference's sharded replicas (a ``mesh=`` per replica) wait for the
-port's mesh.
+Scale-out: each replica is an ordinary adapter, so sharded engines plug
+in unchanged — e.g. N ``VisionEngine(mesh=submesh)`` replicas over the
+disjoint submeshes of `launch.mesh.make_submeshes`, data parallelism
+within a replica and replica parallelism across the pool.  Every rank of
+the world runs the pool on the same requests; a replica's launch is
+computed by the ranks of its submesh and its result broadcast to the
+others (`parallel.collectives.SlotShards`), so every rank's ledgers
+agree.
 """
 from __future__ import annotations
 

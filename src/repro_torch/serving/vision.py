@@ -1,6 +1,6 @@
 """Batched vision serving: microbatched single-shot inference through the
 deploy-folded P²M stem + MobileNetV2 backbone; port of
-`repro.serving.vision` (single device).
+`repro.serving.vision`.
 
 ``VisionEngine`` is a thin adapter over the scheduler core
 (`serving/scheduler.py`): a slot is a position in a fixed-shape
@@ -18,6 +18,16 @@ the patches path after repeated launch faults, which here would be a
 quiet fall back from the kernel to a plain version.  A failing launch
 goes through the scheduler's containment (retry, then quarantine) and
 surfaces as failed requests.
+
+Scale-out (``mesh=``, DESIGN.md §7.1): every rank of the world runs the
+same scheduler on the same requests (the multi-controller counterpart of
+the reference's single controller).  Each rank of the mesh runs its
+slice of the padded microbatch (`parallel.collectives.SlotShards`) through
+the deploy stem and the backbone, and the probabilities are all-gathered,
+so every rank completes the same uids with the same probabilities.  A
+microbatch the mesh's batch axes do not divide replicates.  For an engine
+on a submesh (a `ReplicaPool` replica over `launch.mesh.make_submeshes`)
+the ranks outside it receive its result by broadcast.
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ from repro_torch.core.pixel_model import PixelModel, default_pixel_model
 from repro_torch.core.quant import QuantSpec, quantize_deploy
 from repro_torch.device import resolve_device
 from repro_torch.models.mobilenetv2 import MNV2Config, apply_mnv2
+from repro_torch.parallel.collectives import SlotShards
 from repro_torch.serving.scheduler import ScheduledRequest, SlotEngine
 
 
@@ -69,18 +80,24 @@ class VisionEngine(SlotEngine):
                  max_batch: int = SERVE_MAX_BATCH,
                  max_queue: int = SERVE_MAX_QUEUE,
                  deploy_quant_bits: int | None = SERVE_QUANT_BITS,
+                 mesh=None,
                  evict: str = "drop-oldest",
                  device=None, **core):
         """``params``/``bn_state``: the port's trees (`init_mnv2`, or a
         reference tree through `compat.tree_from_reference`).
         ``deploy_quant_bits``: PTQ bit-width for the folded P²M stem
         (None ⇒ fold only; ignored for the baseline variant).
+        ``mesh``: a data mesh (`launch.mesh`) to shard the microbatch
+        over; every rank of the world must drive the engine alike.
         ``device``: None ⇒ the GPU (raises when there is none).
         ``core`` forwards the scheduler's fault-tolerance and cadence
         knobs to `SlotEngine`."""
         self.device = resolve_device(device)
         super().__init__(max_batch, max_queue=max_queue, evict=evict, **core)
         self.cfg = cfg
+        self.mesh = mesh
+        self._shards = None if mesh is None else SlotShards(mesh,
+                                                            self.n_slots)
         self._params = _tree_to(params, self.device)
         self._bn = _tree_to(bn_state, self.device)
         self._pixel_model = pixel_model or default_pixel_model()
@@ -113,7 +130,14 @@ class VisionEngine(SlotEngine):
         images = np.zeros((self.n_slots, h, w, 3), np.float32)
         for i, req in active:
             images[i] = req.image
-        probs = self.forward(torch.from_numpy(images).to(self.device))
+        if self._shards is None:
+            probs = self.forward(torch.from_numpy(images).to(self.device))
+            return probs.cpu().numpy()
+        shards = self._shards
+        local = (self.forward(torch.from_numpy(images[shards.rows])
+                              .to(self.device)) if shards.member else None)
+        probs = shards.gather(local, (self.n_slots, self.cfg.num_classes),
+                              torch.float32, self.device)
         return probs.cpu().numpy()
 
     def _absorb(self, i, req: VisionRequest, probs) -> bool:

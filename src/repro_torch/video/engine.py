@@ -1,5 +1,5 @@
 """StreamEngine: multi-tick streaming-video detection over the scheduler
-core; port of `repro.video.engine` (single device).
+core; port of `repro.video.engine`.
 
 A request here is a whole video **stream**: it occupies one slot of the
 scheduler's fixed table for as many ticks as it has frames, advancing
@@ -39,6 +39,15 @@ patches conv and the where path after repeated launch faults, which on
 the card would be a quiet fall back from the kernel to a plain version.
 ``_on_launch_fault`` only counts; a failing launch goes through the
 scheduler's containment and surfaces as failed requests.
+
+Scale-out (``mesh=``, the where path only, as the reference's): every
+rank of the world runs the same scheduler on the same streams.  The
+image batch, the cached-stem batch and the rerun mask are split over the
+mesh's batch axes (`parallel.collectives.SlotShards`): each rank runs its
+slots' stems and backbone and keeps its slots' cached stems on its device
+between ticks; the boxes, scores and effective masks are all-gathered, so
+every rank's gates, trackers and ledgers agree.  The gated stem takes the
+whole slot table in one launch and refuses a mesh.
 """
 from __future__ import annotations
 
@@ -68,6 +77,7 @@ from repro_torch.models.mobilenetv2 import (
     apply_mnv2_stem,
 )
 from repro_torch.obs.metrics import counted_lru_cache
+from repro_torch.parallel.collectives import SlotShards
 from repro_torch.serving.scheduler import ScheduledRequest, SlotEngine
 from repro_torch.serving.vision import _tree_to
 from repro_torch.video.delta import DeltaGate, DeltaGateConfig
@@ -137,11 +147,12 @@ class StreamRequest(ScheduledRequest):
 
 @counted_lru_cache("stream_forward")
 def _stream_forward_for(cfg: MNV2Config, dcfg: DetectConfig,
-                        stem_path: str = "where"):
+                        stem_path: str = "where", sharded: bool = False):
     """The per-tick forward: stem (gated or where-select) → backbone →
     heads → top-k decode, as a plain function of the engine's trees and
-    this tick's tensors.  Built once per (cfg, dcfg, stem_path) and shared
-    by every engine on them.
+    this tick's tensors (a rank's slots for a ``sharded`` engine).  Built
+    once per (cfg, dcfg, stem_path, sharded) and shared by every engine
+    on them.
 
     Returns ``forward(params, bn, dep, det, images, cached, rerun) →
     (stem, boxes, scores, rerun_eff)``; ``dep`` is a premixed deploy tree
@@ -151,6 +162,10 @@ def _stream_forward_for(cfg: MNV2Config, dcfg: DetectConfig,
     """
     if stem_path not in ("gated", "where"):
         raise ValueError(f"unknown stem_path {stem_path!r}")
+    if stem_path == "gated" and sharded:
+        raise ValueError("stem_path='gated' needs mesh=None: the fused "
+                         "kernel takes the whole slot table in one launch; "
+                         "sharded engines keep the where-select")
     grid = det_grid(cfg.p2m.out_spatial(cfg.image_size))
     p2m = cfg.p2m
     adc = p2m.adc
@@ -194,13 +209,16 @@ class StreamEngine(SlotEngine):
                  iou_thresh: float = 0.3,
                  evict: str = "drop-newest",
                  stem_path: str = "auto",
+                 mesh=None,
                  device=None, **core):
         """``params``/``bn_state``/``det_params``: the port's trees
         (`init_mnv2` and `init_detect_head`, or reference trees through
         `compat.tree_from_reference`).  ``evict`` defaults to drop-newest:
         an admitted stream is a promise held for its whole lifetime.
         ``stem_path``: ``"gated"``, ``"where"`` or ``"auto"`` (gated on a
-        CUDA engine, where on the CPU).  ``device``: None ⇒ the GPU
+        CUDA engine without a mesh, where otherwise).  ``mesh``: a data
+        mesh (`launch.mesh`) to split the slot table over; every rank of
+        the world must drive the engine alike.  ``device``: None ⇒ the GPU
         (raises when there is none).  ``core`` forwards the scheduler's
         fault-tolerance knobs to `SlotEngine`."""
         if cfg.variant != "p2m":
@@ -232,9 +250,16 @@ class StreamEngine(SlotEngine):
         self._iou_thresh = iou_thresh
 
         if stem_path == "auto":
-            stem_path = "gated" if self.device.type == "cuda" else "where"
-        self._fwd = _stream_forward_for(cfg, det_cfg, stem_path)  # checks it
+            stem_path = ("gated" if self.device.type == "cuda"
+                         and mesh is None else "where")
+        self._fwd = _stream_forward_for(cfg, det_cfg, stem_path,
+                                        mesh is not None)  # checks them
         self.stem_path = stem_path
+        self.mesh = mesh
+        self._shards = None if mesh is None else SlotShards(mesh,
+                                                            self.n_slots)
+        self._n_dets = min(det_cfg.max_dets, det_grid(
+            cfg.p2m.out_spatial(cfg.image_size)) ** 2)
         # skip accounting over *active* slots (gated path only: the where
         # path computes every slot regardless)
         self._stem_total = 0
@@ -243,8 +268,9 @@ class StreamEngine(SlotEngine):
         ho = cfg.p2m.out_spatial(cfg.image_size)
         co = cfg.p2m.out_channels
         # on the device across ticks: _launch feeds the previous tick's
-        # stem output straight back in
-        self._cached_stem = torch.zeros((self.n_slots, ho, ho, co),
+        # stem output straight back in (this rank's slots under a mesh)
+        held = self.n_slots if mesh is None else len(self._shards.rows)
+        self._cached_stem = torch.zeros((held, ho, ho, co),
                                         device=self.device)
         self._gates: list[DeltaGate | None] = [None] * self.n_slots
         self._trackers: list[Tracker | None] = [None] * self.n_slots
@@ -268,7 +294,11 @@ class StreamEngine(SlotEngine):
         nothing of the previous occupant may leak."""
         self._gates[i] = DeltaGate(self.gate_cfg, self.geom)
         self._trackers[i] = Tracker(iou_thresh=self._iou_thresh)
-        self._cached_stem[i] = 0.0
+        if self._shards is None:
+            self._cached_stem[i] = 0.0
+        else:  # this rank's row of slot i, if it holds it
+            for row in np.flatnonzero(self._shards.rows == i):
+                self._cached_stem[int(row)] = 0.0
         req.ledger = self._gates[i].ledger
 
     def _on_launch_fault(self, exc: Exception) -> None:
@@ -297,12 +327,7 @@ class StreamEngine(SlotEngine):
             rerun[i] = gate.should_rerun(frame)
             if gate.disabled and not was_disabled:
                 self._gate_faults += 1  # reference failed validation
-        stem, boxes, scores, rerun_eff = self.forward(
-            torch.from_numpy(images).to(self.device), self._cached_stem,
-            torch.from_numpy(rerun).to(self.device))
-        boxes, scores = boxes.cpu().numpy(), scores.cpu().numpy()
-        rerun_eff = rerun_eff.cpu().numpy()
-        self._cached_stem = stem  # stays on the device
+        boxes, scores, rerun_eff = self._run_slots(images, rerun)
         if self.stem_path == "gated":
             # every active slot whose effective mask is False had its stem
             # copied from the cache in-kernel
@@ -318,6 +343,35 @@ class StreamEngine(SlotEngine):
                 self._gate_faults += 1
             self._gates[i].observe(frames[i], bool(rerun_eff[i]))
         return boxes, scores
+
+    def _run_slots(self, images: np.ndarray, rerun: np.ndarray):
+        """This tick's forward over the slot table (this rank's slots
+        under a mesh, the rest gathered): boxes, scores and the effective
+        mask as numpy arrays.  The new stems stay on the device."""
+        shards = self._shards
+        if shards is None:
+            stem, boxes, scores, rerun_eff = self.forward(
+                torch.from_numpy(images).to(self.device), self._cached_stem,
+                torch.from_numpy(rerun).to(self.device))
+            self._cached_stem = stem
+            return (boxes.cpu().numpy(), scores.cpu().numpy(),
+                    rerun_eff.cpu().numpy())
+        k = self._n_dets
+        local = None
+        if shards.member:
+            rows = shards.rows
+            stem, boxes, scores, rerun_eff = self.forward(
+                torch.from_numpy(images[rows]).to(self.device),
+                self._cached_stem,
+                torch.from_numpy(rerun[rows]).to(self.device))
+            self._cached_stem = stem
+            # one gather: boxes, scores and the mask side by side
+            local = torch.cat([boxes.reshape(len(rows), 4 * k), scores,
+                               rerun_eff[:, None].to(scores.dtype)], dim=1)
+        full = shards.gather(local, (self.n_slots, 5 * k + 1), torch.float32,
+                             self.device).cpu().numpy()
+        return (full[:, :4 * k].reshape(self.n_slots, k, 4),
+                full[:, 4 * k:5 * k], full[:, 5 * k] > 0.5)
 
     def _absorb(self, i: int, req: StreamRequest, result) -> bool:
         boxes, scores = result

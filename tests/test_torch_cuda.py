@@ -1446,3 +1446,44 @@ def test_multimodal_decode_on_the_card_matches_forward(cuda, arch, s):
     assert conv.p2m_conv_fused.launches == stem_before
     np.testing.assert_allclose(torch.stack(logits, 1).cpu().numpy(),
                                ref.cpu().numpy(), rtol=2e-4, atol=5e-4)
+
+
+def test_one_rank_nccl_dp_step_matches_the_single_process_step(cuda):
+    """The data-parallel VWW step in a one-rank NCCL world (mesh (1, 1);
+    the batch statistics, loss and gradient through the collectives) from
+    the single-process step's state, at `configs/p2m_vww.py::CONFIG` (full
+    width, batch 32): the loss within 1e-6, params and BN within 1e-3,
+    the stem's kernels launched in the rank (B1 or B2, B3 and B4 once
+    each).  At 40² the 1x1 tail's BN over 32 values turns the two sums'
+    orders into 2.5e-5 of the loss on the card; at 560² its 7x7 tail
+    keeps it at 6e-8."""
+    import dataclasses
+
+    import _scale_out_ranks as ranks
+    from repro_torch.configs.p2m_vww import CONFIG, TRAIN_BATCH
+    from repro_torch.launch.world import spawn_world
+    from repro_torch.tree import tree_leaves
+
+    cfg_kw = {f.name: getattr(CONFIG, f.name)
+              for f in dataclasses.fields(CONFIG)}
+    params, bn = init_mnv2(torch.Generator().manual_seed(0), CONFIG,
+                           device="cpu")
+    batch = SyntheticVWW(image_size=CONFIG.image_size, batch=TRAIN_BATCH,
+                         seed=0).batch_at(0)
+    (dp,) = spawn_world(ranks.dp_steps, 1, backend="nccl", cuda_index=0,
+                        args=(cfg_kw, ranks.arrays(params), ranks.arrays(bn),
+                              [batch], "cuda"), timeout=300)
+    opt = ranks.dp_optimizer()
+    p, b = ranks.tensors(ranks.arrays(params), cuda), ranks.tensors(
+        ranks.arrays(bn), cuda)
+    state = vww_train_state(p, b, opt.init(p), grad_compression="int8_ef")
+    new, metrics = make_vww_train_step(CONFIG, opt,
+                                       grad_compression="int8_ef")(state,
+                                                                   batch)
+    assert dp["first"]["local_batch"] == TRAIN_BATCH
+    assert abs(dp["first"]["loss"] - float(metrics["loss"])) <= 1e-6
+    for key in ("params", "bn"):
+        for a, w in zip(tree_leaves(dp["first"][key]),
+                        tree_leaves(ranks.arrays(new[key]))):
+            assert np.abs(a - w).max() <= 1e-3
+    assert dp["launches"] == {"forward": 1, "dx": 1, "dw": 1}

@@ -14,7 +14,8 @@ engines swapping the fused conv for the patches path after repeated
 launch faults).  On the card that would be a quiet fall back from a
 kernel to a plain version, so the port has none, and a test here holds
 the opposite: after the faults the engine serves through its own stem
-path.  The sharded-engine test waits for the port's mesh.
+path.  The sharded-engine test has its mirror in
+`tests/test_torch_scale_out.py`, on spawned gloo worlds.
 """
 import dataclasses
 import warnings

@@ -7,8 +7,8 @@ conversion), with each mixed trace also replayed through the reference's
 door and pools for the same ledgers; and the door tests of
 `tests/test_sessions.py` (sessions beside the LM) and
 `tests/test_video_stream.py` (streams beside vision) on the port's
-engines.  The reference's pool of mesh-sharded vision engines waits for
-the port's mesh.
+engines.  The reference's pool of mesh-sharded vision engines has its
+mirror in `tests/test_torch_scale_out.py`, on spawned gloo worlds.
 """
 import dataclasses
 
