@@ -197,8 +197,10 @@ no result:
    --smoke`` exit non-zero with the reference's refusal, and
    `SessionEngine` refuses the SMOKE VLM (``prefill``) before allocating
    anything;
-5l. scale-out of the vision path (`parallel`, `launch.mesh`,
-   `launch.world.spawn_world`; ranks are spawned processes, one
+5l. scale-out of the vision path (run, as 5m is, after phase 9's
+   timings, which no world of processes precedes; `parallel`,
+   `launch.mesh`, `launch.world.spawn_world`; ranks are spawned
+   processes, one
    process tunes the stem for all of them): (a) a one-rank NCCL world on
    cuda:0, mesh (1, 1): one data-parallel `make_vww_train_step` at
    `CONFIG`, batch 32, `int8_ef`, against the single-process step, the
@@ -214,6 +216,35 @@ no result:
    against a single engine (rtol 1e-4, atol 1e-3; 1e-3); each rank's
    launches by part and the worlds' wall times, two ranks sharing one
    card (not a scaling figure);
+5m. scale-out of the LM path (two-rank gloo worlds on cuda:0, TF32 off
+   in every rank; not a scaling figure): (a) tensor parallelism,
+   RWKV-6 3B at full width with 4 of 32 layers, mesh (1, 2), two AdamW
+   steps at 8 x 128 through `launch/train.py`'s plan path: step 1's loss
+   within 1e-5 (relative) of the single process's on the same weights,
+   every reduced float32 gradient leaf within 1e-4 of its largest |g| of
+   one process's that adds in the ranks' parts (`split_grads`), and so
+   with the model in float64 of the single process's, each
+   rank's leaves at the plan's shard shapes, the replicated leaves equal
+   bit for bit across ranks after both steps, B7 2 x 4 times a step a
+   rank at (8, 128, 20, 64), its first call held against the plain twin;
+   (b) the same under FSDP, mesh (2, 1), 4 sequences a rank, B7 at (4,
+   128, 40, 64); (c) expert parallelism, Qwen3-30B-A3B at full width
+   with 4 of 48 layers, mesh (1, 2), 64 experts a rank: the loss and aux
+   of both ``moe_impl``s within 1e-5 (relative) of the single process's;
+   (d) split-KV decode, Llama-3.2-1B whole, mesh (1, 2) under
+   ``cache_seq_shard`` (a cache of 64, 32 a rank): phase 5c's first 4
+   prompts cut to the shortest, 16 greedy tokens through
+   `greedy_generate` under the plan equal to the single process's up to
+   a near-tie, and every teacher-forced step's logits within 1e-5 of its
+   largest |logit|; (e) the sharded engines, RWKV-6 3B whole replicated,
+   mesh (2, 1), 8 slots (4 a rank): `ServeEngine` on phase 5c's 16
+   requests and `SessionEngine` on its 4 three-turn sessions, each
+   rank's first prefill tick equal bit for bit to the single process's
+   on the rank's 4 slots, tokens equal to 5c's single engines' up to the
+   model's float32 spread (a top-2 margin within 0.3), B7 on every prefill
+   tick of each rank; every world's memory and wall time printed; no
+   kernel but B7 launches on the path; B7 timed at phase 9's shape
+   before and after the worlds;
 6. the training path: 6 steps of `make_vww_train_step` on `CONFIG` at
    batch 32 with the paper's `sgd(step_decay(...), momentum=0.9)`; every
    loss finite, each step launches B1 or B2 (as tuned), B3 and B4
@@ -254,7 +285,8 @@ no result:
 10. one JSON line ``{"kernels": [...]}`` (B1-B7; the door's launches
     of B1/B2, B5 and B7 under ``launches_by_path["door"]``; the
     frontend's of B1/B2, B3 and B4 under ``"frontend"``, the scale-out
-    worlds' ranks' under ``"scale_out"``; B7's
+    worlds' ranks' under ``"scale_out"``, the LM scale-out's under
+    ``"lm_scale_out"`` (B7's; 0 for B1-B6); B7's
     ``"dense"``, ``"moe"``, ``"rglru"``, ``"vlm"`` and ``"encdec"``
     paths, each 0);
 11. the card's name and power limit as nvidia-smi gives them, then the
@@ -274,7 +306,10 @@ phase 5h alone, with phase 5's and 5b's main runs as its references
 (`moe_rglru_only`); ``python3 chip_smoke.py --multimodal`` phase 1, the
 builds of ``p2m_conv.cu`` and ``p2m_bwd.cu`` and phase 5k alone
 (`multimodal_only`); ``python3 chip_smoke.py --scale-out`` phase 1, the
-same two builds and phase 5l alone (`scale_out_only`).
+same two builds and phase 5l alone (`scale_out_only`);
+``python3 chip_smoke.py --lm-scale-out`` phase 1, the build of
+``wkv.cu``, phase 5c (the single engines 5m (e) is held to) and phase
+5m alone (`lm_scale_out_only`).
 """
 from __future__ import annotations
 
@@ -1745,6 +1780,7 @@ def lm_path(torch, np, dev, cfg):
 
     first = {}
     eng, done, ticks, margins, launches = serve(cfg, first)
+    first_last = first["last"].cpu().numpy()
     for j, (kind, n) in enumerate(ticks):
         want = cfg.n_layers if kind == "prefill" else 0
         check(n == want, f"step {j} ({kind}) launched B7 {n} times, not "
@@ -1789,6 +1825,20 @@ def lm_path(torch, np, dev, cfg):
           f"{layer_errs}")
     check(torch.equal(replay, first["last"]), "the replayed tick's logits "
           "differ from the run's")
+    # The same tick on each half of the slots alone: the rows a rank of
+    # phase 5m (e) holds, whose first tick must give these bits.
+    counted, halves = kernel.wkv_fused.launches, []
+    with torch.no_grad():
+        for rows in torch.arange(LM_MAX_BATCH).chunk(2):
+            halves.append(rwkv6.prefill_step(
+                params, tree_map(lambda a, r=rows: a[:, r].clone(), state),
+                tokens[rows], n_active[rows], cfg)[0])
+    kernel.wkv_fused.launches = counted
+    first_halves = torch.cat(halves).cpu().numpy()
+    print(f"[5c] first prefill tick on 4 slots at a time (a 5m (e) rank's "
+          f"rows): logits {np.abs(first_halves[:4] - first_last[:4]).max():.3e}"
+          f" (slots 0-3) and {np.abs(first_halves[4:] - first_last[4:]).max():.3e}"
+          f" (slots 4-7) from the 8-slot tick's")
     # The tick's logits from the first ``depth`` layers: B7, the plain
     # twin, the per-token scan, and the plain twin with every weight and
     # activation outside the WKV (which the model runs in float32) in
@@ -1903,7 +1953,7 @@ def lm_path(torch, np, dev, cfg):
               for t in range(3)] for i in range(4)]
     sess = SessionEngine(params, cfg, max_batch=4, max_len=LM_MAX_LEN,
                          prefill_chunk=LM_CHUNK, device=dev)
-    s_ticks, _ = lm_instrument(torch, sess)
+    s_ticks, s_margins = lm_instrument(torch, sess)
     torch.cuda.synchronize()
     kernel.wkv_fused.launches = 0
     t0 = time.perf_counter()
@@ -1929,7 +1979,12 @@ def lm_path(torch, np, dev, cfg):
     return {"params": params, "cfg": cfg, "requests": requests,
             "launches": launches + s_launches, "serve_launches": launches,
             "session_launches": s_launches,
-            "outputs": {r.uid: r.output for r in done}, "margins": margins}
+            "outputs": {r.uid: r.output for r in done}, "margins": margins,
+            "n_params": n_params, "first_last": first_last,
+            "first_halves": first_halves,
+            "session_turns": turns,
+            "session_outputs": {r.uid: r.outputs for r in sreqs},
+            "session_margins": s_margins}
 
 
 LM_TRAIN_STEPS = 3  # full width and depth, through launch/train.py
@@ -3377,12 +3432,12 @@ def moe_drops(cfg, fn):
 
     real, count = transformer.apply_moe, [0, 0]
 
-    def counting(p, x, run_cfg):
+    def counting(p, x, run_cfg, **kw):
         _, _, idx = moe.route(p, x, run_cfg)
         pos = moe.positions(idx, cfg.n_experts)
         count[0] += int((pos >= moe.capacity(cfg, x.shape[1])).sum())
         count[1] += pos.numel()
-        return real(p, x, run_cfg)
+        return real(p, x, run_cfg, **kw)
 
     transformer.apply_moe = counting
     try:
@@ -5233,6 +5288,736 @@ def scale_out_only(torch, np, dev) -> int:
     return 0
 
 
+# Phase 5m: the LM path's scale-out.  Worlds of two ranks share cuda:0
+# over gloo (NCCL refuses two ranks on one card, phase 5l (b)): no time
+# here is a scaling figure.
+LM_SO_LAYERS = 4  # (a), (b): RWKV-6 3B's depth cut, of 32
+LM_SO_ARGV = ["--arch", LM_ARCH, "--layers", str(LM_SO_LAYERS), "--steps",
+              "2", "--batch", "8", "--seq", "128", "--world", "2",
+              "--device", "cuda"]
+LM_SO_LOSS_RTOL = 1e-5  # step 1's loss against the single process's
+# Each gradient leaf, of its largest |g|: in float32 against one process
+# that adds what the ranks add in their parts (`split_grads`), and with
+# the model in float64 (its WKV and GroupNorm float32) against the single
+# process.  Against the plain single process in float32 the ranks' other
+# order of sums moves a leaf by ~1e-2 at this depth (PERF.md §6).
+LM_SO_GRAD_TOL = 1e-4
+EP_ARCH, EP_LAYERS, EP_BATCH = "qwen3-moe-30b-a3b", 4, (4, 64)
+EP_RTOL = 1e-5  # (c): loss and aux against the single process's
+SPLIT_KV_PROMPTS, SPLIT_KV_NEW, SPLIT_KV_LEN = 4, 16, 64
+SPLIT_KV_TOL = 1e-5  # (d): of the single process's largest |logit|
+LM_SO_TIMEOUT = 900.0
+
+
+def _rank_card(torch):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def _local_copy(torch, params, cfg, plan):
+    """This rank's parts of a whole tree, as copies (the whole freed)."""
+    from repro_torch.parallel.sharding_utils import local_tree, param_shardings
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.clone(),
+                    local_tree(params, param_shardings(cfg, plan)))
+
+
+def split_grads(torch, params, batch, cfg, plan, shardings):
+    """Step 1's float32 gradient tree from one process that adds what the
+    plan's ranks add, in their parts: the batch in the data axis's parts
+    (each part's mean loss over the number of parts, the parts' gradients
+    summed), and each product with a weight the plan splits over a model
+    axis of ``m`` ranks in the ranks' parts: a column-split weight's as
+    the parts' products joined (autograd then adds the input's gradients,
+    as *f* does), a row-split weight's as the parts' products added (*g*),
+    and the log-sum-exp over the vocab as the vocab-parallel
+    cross-entropy takes it (the max, then the parts' sums of exponentials
+    added), which a model axis of one runs too.  The model runs without
+    remat, whose recompute in the autograd engine's thread would leave
+    the mode."""
+    from torch.overrides import TorchFunctionMode
+
+    from repro_torch.common.pytree import flatten_with_names
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel.axes import mesh_shape
+    from repro_torch.tree import tree_unflatten
+
+    shape = mesh_shape(plan.mesh)
+    m = shape.get("model", 0)
+    kinds = {}  # data_ptr of a layer's weight -> how the plan splits it
+    if m > 1:
+        split = dict(flatten_with_names(shardings))
+        for name, w in flatten_with_names(params):
+            d = col.model_dim(split[name])
+            if d is not None and d >= w.ndim - 2:
+                for x in (w.unbind(0) if w.ndim == 3 else [w]):
+                    kinds[x.data_ptr()] = "col" if d == w.ndim - 1 else "row"
+
+    class Dense(torch.autograd.Function):
+        """Identity whose backward hands on a contiguous cotangent, as a
+        rank's own product (not a slice of the joined one) receives."""
+
+        @staticmethod
+        def forward(ctx, x):
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g.contiguous()
+
+    def parts(t, dim):
+        n = t.shape[dim] // m
+        return [t.narrow(dim, i * n, n).contiguous() for i in range(m)]
+
+    def total(terms):
+        out = terms[0]
+        for t in terms[1:]:
+            out = out + t
+        return out
+
+    class Split(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if getattr(func, "__name__", None) in ("matmul", "__matmul__"):
+                x, w = args
+                kind = kinds.get(w.data_ptr()) if w.ndim == 2 else None
+                if kind == "col":
+                    return torch.cat([Dense.apply(x @ wp)
+                                      for wp in parts(w, 1)], -1)
+                if kind == "row":
+                    return total([a @ b for a, b in zip(parts(x, -1),
+                                                        parts(w, 0))])
+            if func is torch.logsumexp and m and kwargs == {"dim": -1}:
+                top = args[0].detach().amax(-1)
+                return torch.log(total([
+                    torch.exp(lg - top[..., None]).sum(-1)
+                    for lg in parts(args[0], -1)])) + top
+            return func(*args, **kwargs)
+
+    n_parts = shape.get("data", 1)
+    n = next(iter(batch.values())).shape[0] // n_parts
+    grads = None
+    for i in range(n_parts):
+        part = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+        with Split():
+            _, g = lm_value_and_grad(torch, params, part,
+                                     cfg.replace(remat=False))
+        g = [t / n_parts for t in g]
+        grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+    return tree_unflatten(params, grads)
+
+
+def lm_train_rank(rank, world, argv):
+    """Phase 5m (a)/(b) in one rank: `launch/train.py`'s plan path
+    (``_train`` under ``plan_for(make_debug_mesh(model=…), fsdp=…)``) for
+    two AdamW steps in float32, with the first step's reduced gradients
+    and every B7 call's shape recorded (the first held against the plain
+    twin on its inputs); then, on the same weights and batch, the single
+    process's float32 step-1 loss and gradients (through B7 and through
+    the plain WKV: the model's own float32 spread), the float32 gradients
+    of one process that adds in the ranks' parts (`split_grads`, which
+    the launcher's are held to), and step 1's gradients with the model in
+    float64 (its WKV and GroupNorm float32, through B7), under the plan
+    against the single process's."""
+    import torch
+
+    from repro_torch.common.pytree import flatten_with_names
+    from repro_torch.kernels.rwkv_wkv import ops, ref
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.families import get_family
+    from repro_torch.optim.optimizers import Optimizer
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel import plan_for, use_plan
+    from repro_torch.parallel.sharding_utils import (
+        batch_shardings,
+        local_tree,
+        param_shardings,
+    )
+    from repro_torch.train.step import reduce_gradients
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    dev = _rank_card(torch)
+    args = launch_train._parse(argv)
+    cfg = launch_train.launch_config(args)
+    plan = plan_for(make_debug_mesh(model=args.model_parallel, device=dev),
+                    fsdp=args.fsdp)
+    first, b7 = {}, {"shapes": [], "err": None}
+    adamw, fused = launch_train.adamw, ops.wkv_fused
+
+    def recording_adamw(*a, **kw):
+        opt = adamw(*a, **kw)
+
+        def update_in_place(grads, state, params, step, grad_norm=None):
+            if step == 0:
+                first["grads"] = tree_map(torch.clone, grads)
+            opt.update_in_place(grads, state, params, step,
+                                grad_norm=grad_norm)
+        return Optimizer(opt.init, opt.update, update_in_place)
+
+    def watched(r, k, v, lw, u, st, *, chunk):
+        y, s_new = fused(r, k, v, lw, u, st, chunk=chunk)
+        b7["shapes"].append(tuple(r.shape))
+        if b7["err"] is None:
+            y_p, s_p = ref.wkv_chunked_plain(r, k, v, lw, u, st, chunk)
+            b7["err"] = max(
+                float((y - y_p).abs().max() / y_p.abs().max()),
+                float((s_new - s_p).abs().max() / s_p.abs().max()))
+        return y, s_new
+
+    launch_train.adamw, ops.wkv_fused = recording_adamw, watched
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer, shapes = launch_train._train(args, dev, plan)
+    finally:
+        launch_train.adamw, ops.wkv_fused = adamw, fused
+    torch.cuda.synchronize()
+    out = {"seconds": time.perf_counter() - t0,
+           "launches": kernel_counts(),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": [h["loss"] for h in trainer.history],
+           "shapes_agree": all(a == b for a, b in shapes.values()),
+           "b7_shapes": sorted(set(b7["shapes"])),
+           "b7_calls": len(b7["shapes"]), "b7_err": b7["err"]}
+    sh = param_shardings(cfg, plan)
+    out["replicated_digest"] = tree_digest({str(i): t for i, t in enumerate(
+        tree_leaves(tree_map(lambda t, s: t if not col.sharded_over(s)
+                             else None, trainer.state["params"], sh)))
+        if t is not None})
+    out["local_gb"] = sum(t.numel() * 4 for t in tree_leaves(
+        trainer.state["params"])) / 1e9
+    del trainer
+    torch.cuda.empty_cache()
+
+    family = get_family(cfg)
+    batch = lm_batch(torch, dev, cfg.vocab)
+    weights, _ = family.init(torch.Generator(dev).manual_seed(0), cfg)
+
+    def errors(got, want_local, scale):
+        """The largest error of a leaf, of the leaf's largest |value| in
+        ``scale`` (the whole gradient), and that leaf's name."""
+        w, s = dict(flatten_with_names(want_local)), dict(
+            flatten_with_names(scale))
+        errs = {n: float((g - w[n]).abs().max() / s[n].abs().max())
+                for n, g in flatten_with_names(got)}
+        worst = max(errs, key=errs.get)
+        return errs[worst], worst
+
+    def single(params, run_cfg):
+        loss, grads = lm_value_and_grad(torch, params, batch, run_cfg)
+        return float(loss), tree_unflatten(params, list(grads))
+
+    out["single_loss"], g32 = single(weights, cfg)
+    out["f32_err"] = errors(first["grads"], local_tree(g32, sh), g32)
+    _, g_plain = single(weights, cfg.replace(wkv_impl="plain"))
+    out["f32_spread"] = errors(g_plain, g32, g32)
+    del g_plain
+    g_split = split_grads(torch, weights, batch, cfg, plan, sh)
+    out["f32_split"] = errors(first["grads"], local_tree(g_split, sh), g32)
+    out["split_spread"] = errors(g_split, g32, g32)
+    del first, g32, g_split
+    torch.cuda.empty_cache()
+
+    c64 = cfg.replace(dtype=torch.float64)
+    w64 = tree_map(torch.Tensor.double, weights)
+    del weights
+    loss64, g64 = single(w64, c64)
+    want = tree_map(torch.clone, local_tree(g64, sh))
+    scale = tree_map(lambda t: t.abs().max(), g64)  # each leaf's, whole
+    local = tree_map(torch.clone, local_tree(w64, sh))
+    del g64, w64
+    torch.cuda.empty_cache()
+    part = local_tree(batch, batch_shardings(batch, plan))
+    with use_plan(plan):
+        tp_loss, tp = single(local, c64)
+        tp = reduce_gradients(tp, sh, plan)
+        tp_loss = float(col.all_reduce_sum(torch.tensor(
+            tp_loss, dtype=torch.float64, device=dev), col.axis_groups(
+                plan.mesh, col.batch_axes(plan))))
+    out["f64_loss"] = (tp_loss, loss64)
+    out["grad_err"], out["grad_worst"] = errors(tp, want, scale)
+    out["n_leaves"] = len(tree_leaves(tp))
+    return out
+
+
+def ep_rank(rank, world, batch):
+    """Phase 5m (c) in one rank: Qwen3-30B-A3B at full width, depth cut,
+    its experts over the model axis (mesh (1, world)); the loss and aux
+    of both ``moe_impl``s under the plan."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.families import get_family
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel import plan_for, use_plan
+
+    dev = _rank_card(torch)
+    cfg = get_config(EP_ARCH).replace(dtype=torch.float32,
+                                      n_layers=EP_LAYERS)
+    mesh = make_debug_mesh(model=world, device=dev)
+    plan = plan_for(mesh)
+    family = get_family(cfg)
+    local = _local_copy(torch, family.init(
+        torch.Generator(dev).manual_seed(SEED), cfg)[0], cfg, plan)
+    torch.cuda.empty_cache()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    out = {"experts_here": int(local["layers"]["moe"]["wi"].shape[1]),
+           "gb": torch.cuda.memory_allocated() / 1e9}
+    for impl in ("xla", "shard_map"):
+        run_cfg = cfg.replace(moe_impl=impl)
+        with use_plan(plan), torch.no_grad():
+            loss, metrics = family.loss(local, batch, run_cfg)
+            loss = col.all_reduce_sum(loss, col.axis_groups(
+                mesh, col.batch_axes(plan)))
+        out[impl] = (float(loss), float(metrics["aux"]))
+    out["launches"] = kernel_counts()
+    return out
+
+
+def split_kv_rank(rank, world, prompts, single_logits):
+    """Phase 5m (d) in one rank: Llama-3.2-1B whole, mesh (1, world),
+    ``cache_seq_shard``: `greedy_generate` under the plan, then the
+    prompts and the single process's tokens teacher-forced through the
+    split-KV ``decode_step``, each step's logits against the single
+    process's (the rank's vocab columns gathered)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.families import get_family
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel import plan_for, use_plan
+    from repro_torch.parallel.sharding_utils import local_tree, shardings_for
+    from repro_torch.serving import greedy_generate
+
+    dev = _rank_card(torch)
+    cfg = get_config(DENSE_ARCH).replace(dtype=torch.float32)
+    mesh = make_debug_mesh(model=world, device=dev)
+    plan = plan_for(mesh, cache_seq_shard=True)
+    family = get_family(cfg)
+    local = _local_copy(torch, family.init(
+        torch.Generator(dev).manual_seed(SEED), cfg)[0], cfg, plan)
+    torch.cuda.empty_cache()
+    b, p = prompts.shape
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    with use_plan(plan), torch.no_grad():
+        tokens = greedy_generate(local, cfg, prompts, SPLIT_KV_NEW,
+                                 max_len=SPLIT_KV_LEN)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        seq = torch.from_numpy(np.concatenate(
+            [prompts, single_logits.argmax(-1)[:, p - 1:-1]], axis=1)).to(dev)
+        state, axes = family.init_decode_state(cfg, b, SPLIT_KV_LEN,
+                                               device=dev)
+        state_sh = shardings_for(state, axes, plan)
+        state = local_tree(state, state_sh)
+        worst = 0.0
+        groups = col.axis_groups(mesh, ("model",))
+        for t in range(seq.shape[1]):
+            lg, state = family.decode(local, state, seq[:, t:t + 1],
+                                      torch.full((b,), t, device=dev), cfg,
+                                      cache_shardings=state_sh)
+            whole = col.gather_from_model(lg[:, 0], groups, -1)
+            want = torch.from_numpy(single_logits[:, t]).to(dev)
+            worst = max(worst, float((whole - want).abs().max()))
+    return {"tokens": tokens.cpu().numpy(), "logit_err": worst,
+            "gen_s": gen_s, "cache_local": tuple(state["k"].shape),
+            "launches": kernel_counts(),
+            "gb": torch.cuda.memory_allocated() / 1e9}
+
+
+def lm_engines_rank(rank, world, turns, first_last):
+    """Phase 5m (e) in one rank: RWKV-6 3B whole (replicated), mesh
+    (world, 1): `ServeEngine` on phase 5c's 16 requests and
+    `SessionEngine` on its 4 three-turn sessions, 8 slots each, this
+    rank's 8/world computed; B7's launches in the rank, and the first
+    prefill tick's logits against 5c's single engine's (``first_last``,
+    the same requests in the same slots)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.families import get_family
+    from repro_torch.serving import (
+        ServeEngine,
+        SessionEngine,
+        SessionRequest,
+        drive,
+    )
+
+    dev = _rank_card(torch)
+    cfg = get_config(LM_ARCH).replace(dtype=torch.float32)
+    mesh = make_debug_mesh(device=dev)
+    params, _ = get_family(cfg).init(torch.Generator(dev).manual_seed(SEED),
+                                     cfg)
+    _, requests = lm_traffic(np, cfg.vocab)
+    out = {"gb": torch.cuda.memory_allocated() / 1e9}
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    eng = ServeEngine(params, cfg, max_batch=LM_MAX_BATCH, max_len=LM_MAX_LEN,
+                      prefill_chunk=LM_CHUNK, mesh=mesh, device=dev)
+    chunk_step, first = eng._chunk_step, {}
+
+    def watched(*a):
+        last, state = chunk_step(*a)
+        first.setdefault("last", last.cpu().numpy())
+        return last, state
+
+    eng._chunk_step = watched
+    drive(eng, requests(), on_undrained="raise")
+    out["first_logits"] = first["last"]
+    out["first_tick"] = float(np.abs(
+        first["last"] - first_last[eng._shards.rows]).max())
+    torch.cuda.synchronize()
+    out["serve_s"] = time.perf_counter() - t0
+    out["serve_launches"] = kernel_counts()
+    out["outputs"] = {r.uid: r.output for r in eng.completed}
+    out["failed"] = len(eng.failed) + len(eng.evicted)
+    out["rows"] = eng._shards.rows.tolist()
+    out["ticks"] = eng.stats["launches"]
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    sess = SessionEngine(params, cfg, max_batch=LM_MAX_BATCH,
+                         max_len=LM_MAX_LEN, prefill_chunk=LM_CHUNK,
+                         mesh=mesh, device=dev)
+    sreqs = [SessionRequest(uid=i, turns=t, max_new_tokens=8)
+             for i, t in enumerate(turns)]
+    drive(sess, sreqs, on_undrained="raise")
+    torch.cuda.synchronize()
+    out["session_s"] = time.perf_counter() - t0
+    out["session_launches"] = kernel_counts()
+    out["session_outputs"] = {r.uid: r.outputs for r in sreqs}
+    out["session_done"] = all(r.done for r in sreqs)
+    return out
+
+
+def _near_tie_tokens(got, want, margins, tag, limit=LM_LOGIT_TOL):
+    """Tokens equal, or the first difference at a near-tie of the
+    reference (its top-2 margin within ``limit``); how many equal."""
+    same = 0
+    for uid, w in want.items():
+        g = got[uid]
+        if g == w:
+            same += 1
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(g, w)) if x != y)
+        m = margins[uid][j]
+        print(f"[5m] {tag} {uid}: tokens first differ at output {j} "
+              f"({g[j]} vs {w[j]}), top-2 margin {m:.3e} (limit {limit})")
+        check(m <= limit, f"5m {tag} {uid}: tokens differ at {j}, "
+              f"not a near-tie (margin {m}, limit {limit})")
+    return same
+
+
+def lm_scale_out_path(torch, np, dev, smi, lm):
+    """Phase 5m: the LM path's scale-out on one card, ranks over gloo.
+    (a) TP train and (b) FSDP train through `launch/train.py`'s plan
+    path, (c) EP, (d) split-KV decode, (e) the sharded engines against
+    phase 5c's (``lm``).  Returns every kernel's launches on the path
+    (the ranks' sums) and the worlds' wall times."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.world import spawn_world
+    from repro_torch.models.families import get_family
+    from repro_torch.serving import greedy_generate
+    from repro_torch.tree import tree_leaves
+
+    from repro_torch.kernels.rwkv_wkv import kernel
+
+    launches = {name: 0 for name in kernel_counts()}
+    walls = {}
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
+                        device=dev)
+    b7_in = wkv_inputs(torch, np, dev, *WKV_SERVE_SHAPE, SEED + 60)
+
+    def time_b7(when):
+        """B7 at phase 9's shape, as phase 9 times it, and its wrapper's
+        host time, with the card's clocks and the parent's live children:
+        whether 5m's worlds leave the card or the host slower."""
+        import multiprocessing
+        import threading
+
+        counted = kernel.wkv_fused.launches
+        ms = cuda_ms(torch, lambda: kernel.wkv_fused(*b7_in), flush)
+        host = wall_ms(torch, lambda: kernel.wkv_fused(*b7_in), flush)
+        kernel.wkv_fused.launches = counted
+        state = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,temperature.gpu,"
+             "power.draw", "--format=csv,noheader"], capture_output=True,
+            text=True, timeout=60).stdout.strip()
+        print(f"[5m] B7 at {WKV_SERVE_SHAPE} {when} 5m's worlds: {ms:.4f} ms "
+              f"(CUDA events, L2 flushed), through its wrapper {host:.4f} "
+              f"ms (host clock); card (SM clock, memory clock, temperature, "
+              f"power) {state}; the parent's live children "
+              f"{len(multiprocessing.active_children())}, threads "
+              f"{threading.active_count()}; {smi}")
+        return ms, host
+
+    b7_ms = {"before": time_b7("before")}
+
+    def spawn(tag, fn, args):
+        print(f"[5m] {tag}: the parent holds "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+        t0 = time.perf_counter()
+        res = spawn_world(fn, 2, backend="gloo", cuda_index=0, args=args,
+                          timeout=LM_SO_TIMEOUT)
+        walls[tag] = time.perf_counter() - t0
+        return res
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] += n
+
+    # (a) and (b): the launcher's plan path, two AdamW steps
+    rwkv = get_config(LM_ARCH).replace(n_layers=LM_SO_LAYERS)
+    n_params = rwkv.param_count_estimate()
+    heads = rwkv.n_rwkv_heads
+    for tag, extra, want_shape in (
+            ("(a) TP, mesh (1, 2)", ["--model-parallel", "2"],
+             (8, 128, heads // 2, rwkv.rwkv_head_dim)),
+            ("(b) FSDP, mesh (2, 1)", ["--model-parallel", "1", "--fsdp"],
+             (4, 128, heads, rwkv.rwkv_head_dim))):
+        print(f"[5m] {tag}: RWKV-6 3B at full width, {LM_SO_LAYERS} of 32 "
+              f"layers (about {n_params / 1e9:.2f} B params by the "
+              f"reference's count, {4 * n_params / 1e9:.2f} GB fp32 whole); "
+              f"a rank holds its part, AdamW's two moments and, for the "
+              f"check, the whole tree and its gradient")
+        ranks = spawn(tag, lm_train_rank, (LM_SO_ARGV + extra,))
+        for rank, res in enumerate(ranks):
+            loss_err = abs(res["losses"][0] - res["single_loss"]) / abs(
+                res["single_loss"])
+            l64, want64 = res["f64_loss"]
+            loss64_err = abs(l64 - want64) / abs(want64)
+            print(f"[5m] {tag} rank {rank}: losses {res['losses']}, step 1 "
+                  f"vs the single process {loss_err:.3e} (relative); "
+                  f"float32 gradients: worst leaf {res['f32_err'][0]:.3e} "
+                  f"of its largest |g| ({res['f32_err'][1]}), the single "
+                  f"process's own spread (B7 vs plain WKV) "
+                  f"{res['f32_spread'][0]:.3e} ({res['f32_spread'][1]}); "
+                  f"B7 {res['b7_calls']} calls at {res['b7_shapes']}, first "
+                  f"vs plain twin {res['b7_err']:.3e}; local params "
+                  f"{res['local_gb']:.2f} GB, peak {res['peak_gb']:.2f} GB; "
+                  f"{res['seconds']:.2f} s (host clock)")
+            print(f"[5m] {tag} rank {rank}: float32 gradients against "
+                  f"one process that adds in the ranks' parts "
+                  f"(`split_grads`): worst leaf {res['f32_split'][0]:.3e} "
+                  f"({res['f32_split'][1]}; limit {LM_SO_GRAD_TOL}); that "
+                  f"process against the plain single one "
+                  f"{res['split_spread'][0]:.3e} ({res['split_spread'][1]})")
+            print(f"[5m] {tag} rank {rank}: step 1 in float64 (WKV and "
+                  f"GroupNorm float32, B7): loss {loss64_err:.3e} "
+                  f"(relative), {res['n_leaves']} gradient leaves, worst "
+                  f"{res['grad_err']:.3e} of its largest |g| "
+                  f"({res['grad_worst']})")
+            check(loss_err <= LM_SO_LOSS_RTOL and loss64_err
+                  <= LM_SO_LOSS_RTOL, f"5m {tag} rank {rank}: loss "
+                  f"{loss_err}, float64 {loss64_err}")
+            check(res["grad_err"] <= LM_SO_GRAD_TOL, f"5m {tag} rank {rank}: "
+                  f"gradient {res['grad_worst']} {res['grad_err']}")
+            check(res["f32_split"][0] <= LM_SO_GRAD_TOL, f"5m {tag} rank "
+                  f"{rank}: float32 gradient {res['f32_split'][1]} "
+                  f"{res['f32_split'][0]} from the split single process's")
+            check(res["shapes_agree"], f"5m {tag} rank {rank}: a leaf's "
+                  "shape is not the plan's shard shape")
+            check(res["b7_shapes"] == [want_shape]
+                  and res["b7_calls"] == 2 * 2 * LM_SO_LAYERS
+                  and res["launches"]["wkv_fused"] == 2 * 2 * LM_SO_LAYERS,
+                  f"5m {tag} rank {rank}: B7 {res['b7_calls']} calls, "
+                  f"{res['launches']['wkv_fused']} launches at "
+                  f"{res['b7_shapes']}")
+            check(res["b7_err"] <= WKV_TOL, f"5m {tag}: B7 vs plain "
+                  f"{res['b7_err']}")
+            check(res["replicated_digest"] == ranks[0]["replicated_digest"]
+                  and res["losses"] == ranks[0]["losses"],
+                  f"5m {tag}: rank {rank}'s replicated leaves differ")
+            add(res["launches"])
+        print(f"[5m] {tag}: both ranks' replicated leaves equal bit for bit "
+              f"after 2 steps (sha256 {ranks[0]['replicated_digest'][:16]}"
+              f"...); world wall {walls[tag]:.2f} s, {smi}, two ranks "
+              f"sharing one card over gloo (not a scaling figure)")
+
+    # (c) EP: the single process's loss first, then the world
+    cfg = get_config(EP_ARCH).replace(dtype=torch.float32,
+                                      n_layers=EP_LAYERS)
+    rng = np.random.default_rng(SEED + 20)
+    toks = rng.integers(0, cfg.vocab, EP_BATCH).astype(np.int64)
+    batch = {"tokens": toks, "targets": toks}
+    family = get_family(cfg)
+    params, _ = family.init(torch.Generator(dev).manual_seed(SEED), cfg)
+    n_ep = sum(t.numel() for t in tree_leaves(params))
+    with torch.no_grad():
+        loss, metrics = family.loss(params, {k: torch.from_numpy(v).to(dev)
+                                             for k, v in batch.items()}, cfg)
+    want = (float(loss), float(metrics["aux"]))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[5m] (c) EP: {EP_ARCH} at full width, {EP_LAYERS} of "
+          f"{get_config(EP_ARCH).n_layers} layers ({n_ep} params, "
+          f"{4 * n_ep / 1e9:.2f} GB fp32 whole, the experts' half a rank), "
+          f"batch {EP_BATCH}; single process loss {want[0]:.6f}, aux "
+          f"{want[1]:.6f}")
+    ranks = spawn("(c) EP, mesh (1, 2)", ep_rank, (batch,))
+    for rank, res in enumerate(ranks):
+        for impl in ("xla", "shard_map"):
+            got = res[impl]
+            err = max(abs(got[0] - want[0]) / abs(want[0]),
+                      abs(got[1] - want[1]) / abs(want[1]))
+            check(err <= EP_RTOL, f"5m (c) rank {rank} {impl}: {got} vs "
+                  f"{want}")
+            print(f"[5m] (c) rank {rank} {impl}: loss {got[0]:.6f}, aux "
+                  f"{got[1]:.6f}, relative error {err:.3e}; "
+                  f"{res['experts_here']} experts here, {res['gb']:.2f} GB")
+        check(res["experts_here"] == cfg.n_experts // 2,
+              f"5m (c): {res['experts_here']} experts a rank")
+        add(res["launches"])
+
+    # (d) split-KV decode: the single process's greedy run and logits
+    dcfg = get_config(DENSE_ARCH).replace(dtype=torch.float32)
+    lengths, requests = lm_traffic(np, dcfg.vocab, SPLIT_KV_PROMPTS)
+    p = int(min(lengths))
+    prompts = np.stack([np.asarray(r.prompt[:p], np.int64)
+                        for r in requests()])
+    family = get_family(dcfg)
+    params, _ = family.init(torch.Generator(dev).manual_seed(SEED), dcfg)
+    with torch.no_grad():
+        tokens = greedy_generate(params, dcfg, prompts, SPLIT_KV_NEW,
+                                 max_len=SPLIT_KV_LEN,
+                                 prefill_chunk=1).cpu().numpy()
+        seq = torch.from_numpy(np.concatenate([prompts, tokens[:, :-1]],
+                                              axis=1)).to(dev)
+        state, _ = family.init_decode_state(dcfg, len(prompts),
+                                            SPLIT_KV_LEN, device=dev)
+        logits = []
+        for t in range(seq.shape[1]):
+            lg, state = family.decode(params, state, seq[:, t:t + 1],
+                                      torch.full((len(prompts),), t,
+                                                 device=dev), dcfg)
+            logits.append(lg[:, 0].cpu().numpy())
+    logits = np.stack(logits, 1)
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    scale = float(np.abs(logits).max())
+    top2 = np.sort(logits[:, p - 1:], axis=-1)[..., -2:]
+    margins = {i: list(top2[i, :, 1] - top2[i, :, 0])
+               for i in range(len(prompts))}
+    print(f"[5m] (d) split-KV: {DENSE_ARCH} whole, prompts {prompts.shape} "
+          f"(phase 5c's first {SPLIT_KV_PROMPTS}, cut to the shortest), "
+          f"{SPLIT_KV_NEW} greedy tokens, cache of {SPLIT_KV_LEN} "
+          f"({SPLIT_KV_LEN // 2} a rank); single process's largest |logit| "
+          f"{scale:.3f}")
+    ranks = spawn("(d) split-KV, mesh (1, 2)", split_kv_rank,
+                  (prompts, logits))
+    for rank, res in enumerate(ranks):
+        same = _near_tie_tokens(
+            {i: list(res["tokens"][i]) for i in range(len(prompts))},
+            {i: list(tokens[i]) for i in range(len(prompts))}, margins,
+            "(d)")
+        print(f"[5m] (d) rank {rank}: cache {res['cache_local']} here; "
+              f"logits max |diff| {res['logit_err']:.3e} "
+              f"({res['logit_err'] / scale:.3e} of the largest), "
+              f"{same}/{len(prompts)} rows' tokens equal; greedy "
+              f"{res['gen_s']:.2f} s (host clock, gloo), {res['gb']:.2f} GB")
+        check(res["logit_err"] <= SPLIT_KV_TOL * scale, f"5m (d) rank {rank}: "
+              f"logits differ by {res['logit_err']}")
+        check(res["cache_local"][2] == SPLIT_KV_LEN // 2,
+              f"5m (d): cache {res['cache_local']}")
+        add(res["launches"])
+
+    # (e) the sharded engines against phase 5c's single ones
+    print(f"[5m] (e) engines: RWKV-6 3B whole on each rank "
+          f"({4 * lm['n_params'] / 1e9:.2f} GB fp32 replicated), 8 slots, 4 "
+          "a rank")
+    ranks = spawn("(e) engines, mesh (2, 1)", lm_engines_rank,
+                  (lm["session_turns"], lm["first_last"]))
+    for rank, res in enumerate(ranks):
+        check(res["failed"] == 0 and sorted(res["outputs"]) == sorted(
+            lm["outputs"]), f"5m (e) rank {rank}: served "
+            f"{sorted(res['outputs'])}, {res['failed']} failed")
+        # A rank's first tick equals the single process's on its 4 slots
+        # bit for bit (below); those round otherwise than 5c's 8-slot
+        # products (cuBLAS picks by shape), which 32 layers carry to the
+        # logits as any two float32 runs of this model: a later differing
+        # token's margin is held to the model's spread limit (5c), not
+        # B7's.
+        same = _near_tie_tokens(res["outputs"], lm["outputs"], lm["margins"],
+                                "(e) serve", LM_SPREAD_TOL)
+        flat = {u: sum(o, []) for u, o in res["session_outputs"].items()}
+        want = {u: sum(o, []) for u, o in lm["session_outputs"].items()}
+        check(res["session_done"], f"5m (e) rank {rank}: sessions undone")
+        s_same = _near_tie_tokens(flat, want, lm["session_margins"],
+                                  "(e) sessions", LM_SPREAD_TOL)
+        b7 = (res["serve_launches"]["wkv_fused"],
+              res["session_launches"]["wkv_fused"])
+        check(all(n > 0 and n % lm["cfg"].n_layers == 0 for n in b7),
+              f"5m (e) rank {rank}: B7 launches {b7}")
+        rows = res["rows"]
+        same_first = rows in ([0, 1, 2, 3], [4, 5, 6, 7]) and np.array_equal(
+            res["first_logits"], lm["first_halves"][rows])
+        print(f"[5m] (e) rank {rank}: the first prefill tick's logits equal "
+              f"bit for bit to the single process's tick on slots {rows} "
+              f"alone: {same_first}; {res['first_tick']:.3e} from 5c's "
+              f"8-slot tick's")
+        check(same_first, f"5m (e) rank {rank}: the first tick's logits "
+              f"differ from the single process's on slots {rows}")
+        print(f"[5m] (e) rank {rank}: slots {res['rows']}; ServeEngine "
+              f"{len(res['outputs'])} requests in {res['ticks']} ticks, "
+              f"{same}/{len(lm['outputs'])} token lists equal "
+              f"to 5c's, {res['serve_s']:.2f} s; SessionEngine "
+              f"{s_same}/{len(want)} sessions equal, "
+              f"{res['session_s']:.2f} s; B7 {b7[0]} + {b7[1]} launches "
+              f"here; {res['gb']:.2f} GB (host clock, gloo)")
+        add(res["serve_launches"])
+        add(res["session_launches"])
+    others = {k: n for k, n in launches.items() if k != "wkv_fused"}
+    check(not any(others.values()), f"5m: a kernel other than B7 launched "
+          f"on the LM scale-out path: {others}")
+    check(launches["wkv_fused"] > 0, "5m: B7 never launched")
+    print(f"[5m] kernel launches on the LM scale-out path (every rank): "
+          f"{launches}; world walls {walls}")
+    b7_ms["after"] = time_b7("after")
+    del flush, b7_in
+    return {"launches": launches, "walls": walls, "b7_ms": b7_ms}
+
+
+def lm_scale_out_only(torch, np, dev) -> int:
+    """``chip_smoke.py --lm-scale-out``: phase 1, the build of ``wkv.cu``,
+    phase 5c (the single engines (e) is held to) and phase 5m alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rwkv_wkv import kernel as wkv_kernel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = smi_line()
+    print(f"[1] card: {smi}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
+    wkv_kernel.build_wkv()
+    print(f"[2] wkv.cu: nvcc {_build.BUILD_INFO['wkv'][0]:.2f} s")
+    lm = lm_path(torch, np, dev, get_config(LM_ARCH).replace(
+        dtype=torch.float32))
+    print(json.dumps(lm_scale_out_path(torch, np, dev, smi, lm)))
+    print(smi)
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5251,6 +6036,8 @@ def main() -> int:
     PEAK_BYTES_PER_S, PEAK_FP32_FLOPS = HBM_BW, PEAK_FLOPS_FP32
     if sys.argv[1:] == ["--scale-out"]:
         return scale_out_only(torch, np, torch.device("cuda"))
+    if sys.argv[1:] == ["--lm-scale-out"]:
+        return lm_scale_out_only(torch, np, torch.device("cuda"))
     if sys.argv[1:] == ["--b4"]:
         return b4_only(torch, np, torch.device("cuda"))
     if sys.argv[1:] == ["--b1b6"]:
@@ -5475,7 +6262,6 @@ def main() -> int:
     dense = dense_path(torch, np, dev, smi)
     moe_rglru = moe_rglru_path(torch, np, dev, smi)
     multimodal = multimodal_path(torch, np, dev, smi)
-    scale_out = scale_out_path(torch, np, dev, smi)
 
     # ------------------------------------------------------- phase 6
     train = train_path(torch, np, dev)
@@ -5584,6 +6370,11 @@ def main() -> int:
     bwd_rows = time_backward_kernels(torch, bwd, flush)
     time_train_step(torch, train, flush)
     wkv_row = time_lm(torch, np, dev, lm, wkv_in, flush)
+    del flush
+    # The multi-process phases come after the timings: a B7 read after
+    # 5m's worlds took 1.19x the one before them (PERF.md §6).
+    scale_out = scale_out_path(torch, np, dev, smi)
+    lm_scale_out = lm_scale_out_path(torch, np, dev, smi, lm)
 
     # ------------------------------------------------------- phase 10
     # B1 and B2 run, as the tuner picks, on the serving run, the training
@@ -5599,7 +6390,8 @@ def main() -> int:
             "stream": stream["where_launches"][name],
             "door": door_launches(door, name),
             "frontend": multimodal["launches"][name],
-            "scale_out": scale_out["launches"][name]}
+            "scale_out": scale_out["launches"][name],
+            "lm_scale_out": lm_scale_out["launches"][name]}
         check(sum(stem_paths[name].values()) > 0,
               f"{name} launched no time on the main paths")
     kernels = [{
@@ -5637,10 +6429,13 @@ def main() -> int:
             "replaces": replaces,
             "launches": (train["launches"][name]
                          + multimodal["launches"][name]
-                         + scale_out["launches"][name]),
+                         + scale_out["launches"][name]
+                         + lm_scale_out["launches"][name]),
             "launches_by_path": {"train": train["launches"][name],
                                  "frontend": multimodal["launches"][name],
-                                 "scale_out": scale_out["launches"][name]},
+                                 "scale_out": scale_out["launches"][name],
+                                 "lm_scale_out":
+                                     lm_scale_out["launches"][name]},
             "max_abs_err": bwd_err[name],
             **bwd_rows[name],
         })
@@ -5648,7 +6443,9 @@ def main() -> int:
                     for name in gated_launches(gated))
     b5_door = sum(door_launches(door, name)
                   for name in gated_launches(gated))
-    b5 = b5_stream + b5_door
+    b5_lm_so = sum(lm_scale_out["launches"][name]
+                   for name in gated_launches(gated))
+    b5 = b5_stream + b5_door + b5_lm_so
     check(b5_stream > 0 and b5_door > 0,
           "p2m_conv_fused_gated launched no time on a main path")
     kernels.append({
@@ -5663,7 +6460,8 @@ def main() -> int:
         "launches_pipelined":
             stream["launches"]["p2m_conv_fused_gated_pipelined"]
             + door_launches(door, "p2m_conv_fused_gated_pipelined"),
-        "launches_by_path": {"stream": b5_stream, "door": b5_door},
+        "launches_by_path": {"stream": b5_stream, "door": b5_door,
+                             "lm_scale_out": b5_lm_so},
         "max_abs_err": gated_err,
         **gated_row,
     })
@@ -5673,8 +6471,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/p2m_conv/csrc/p2m_matmul.cu",
         "replaces": "src/repro/kernels/p2m_conv/kernel.py:159",
         # the patch-level path of phase 5d
-        "launches": mm_launches,
-        "launches_by_path": {"patches": mm_launches},
+        "launches": mm_launches + lm_scale_out["launches"]["p2m_matmul_fused"],
+        "launches_by_path": {
+            "patches": mm_launches,
+            "lm_scale_out": lm_scale_out["launches"]["p2m_matmul_fused"]},
         "max_abs_err": mm_err,
         **mm_row,
     })
@@ -5685,13 +6485,17 @@ def main() -> int:
         "replaces": "src/repro/kernels/rwkv_wkv/kernel.py:108",
         # the LM path: ServeEngine's and SessionEngine's prefill ticks;
         # the door's LM engine (phase 5h); the LM train steps (forward
-        # and recompute, phase 5g (c)); none on the dense path (5i), the
-        # MoE path or the RG-LRU path (5j), the VLM or Whisper (5k)
+        # and recompute, phase 5g (c)); the LM scale-out's ranks (the TP
+        # and FSDP train steps on a rank's heads or batch, the sharded
+        # engines' prefill ticks on a rank's slots, phase 5m); none on the
+        # dense path (5i), the MoE path or the RG-LRU path (5j), the VLM
+        # or Whisper (5k)
         "launches": (lm["launches"] + door_launches(door, "wkv_fused")
                      + lm_train["launches"] + dense["b7"]
                      + sum(moe_rglru["b7"].values())
                      + multimodal["vlm"]["b7"]
-                     + multimodal["encdec"]["b7"]),
+                     + multimodal["encdec"]["b7"]
+                     + lm_scale_out["launches"]["wkv_fused"]),
         "launches_by_path": {"lm": lm["launches"],
                              "door": door_launches(door, "wkv_fused"),
                              "lm_train": lm_train["launches"],
@@ -5700,7 +6504,9 @@ def main() -> int:
                                         for name, _ in MOE_CUT),
                              "rglru": moe_rglru["b7"][RGLRU_ARCH],
                              "vlm": multimodal["vlm"]["b7"],
-                             "encdec": multimodal["encdec"]["b7"]},
+                             "encdec": multimodal["encdec"]["b7"],
+                             "lm_scale_out":
+                                 lm_scale_out["launches"]["wkv_fused"]},
         "max_abs_err": wkv_err,
         **wkv_row,
     })
@@ -5709,6 +6515,10 @@ def main() -> int:
     check(all(b7_paths[path] == 0
               for path in ("dense", "moe", "rglru", "vlm", "encdec")),
           f"B7 launched on a path that has no WKV: {b7_paths}")
+    check(b7_paths["lm_scale_out"] > 0
+          and all(k["launches_by_path"]["lm_scale_out"] == 0
+                  for k in kernels[:-1]),
+          "the LM scale-out path launched B7 no time, or another kernel")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,14 @@ Everything here is allocation-free: parameters and optimizer state come
 from the families' real init functions under `abstract_init` (``meta``
 tensors), inputs are ``meta`` tensors, and decode caches use the
 families' ``abstract=True`` path.  Each builder returns the step
-function, the abstract values and their `NamedSharding` trees.  Running
-an LM cell sharded is not ported yet: its step functions are the
-single-device ones.
+function, the abstract values and their `NamedSharding` trees.  The step
+function runs sharded under the cell's plan, as the reference's jit with
+those shardings: called on a rank with its parts of the values
+(`sharding_utils.local_tree` of the whole ones by the shardings), it
+enters the plan itself, so the train step's gradients, the forward and
+the decode (split-KV under ``cache_seq_shard``) are the sharded ones of
+`train/step.py` and `models/` (the rglru, vlm and encdec families raise
+under a plan with a model axis or FSDP: ROADMAP A12c).
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.families import get_family
 from repro_torch.models.init_utils import abstract_init
 from repro_torch.optim import adamw, constant
-from repro_torch.parallel import ShardingPlan, plan_for
+from repro_torch.parallel import ShardingPlan, plan_for, use_plan
 from repro_torch.parallel.sharding_utils import shardings_for
 from repro_torch.train.state import state_logical_axes
 from repro_torch.train.step import make_train_step
@@ -100,6 +105,14 @@ def plan_for_cell(cfg: ModelConfig, spec: ShapeSpec, mesh,
 # ------------------------------------------------------------------ steps
 
 
+def _under(plan: ShardingPlan, fn):
+    """``fn`` run under ``plan``, on a rank's parts of its arguments."""
+    def run(*args):
+        with use_plan(plan):
+            return fn(*args)
+    return run
+
+
 def _abstract_params(cfg: ModelConfig):
     with abstract_init():
         return get_family(cfg).init(torch.Generator(), cfg)
@@ -114,7 +127,7 @@ def build_train_cell(cfg: ModelConfig, spec: ShapeSpec, plan: ShardingPlan):
     state_axes = state_logical_axes(param_axes, opt)
 
     inputs, input_axes = input_specs(cfg, spec)
-    step = make_train_step(cfg, optimizer)
+    step = _under(plan, make_train_step(cfg, optimizer))
     state_sh = shardings_for(state, state_axes, plan)
     input_sh = shardings_for(inputs, input_axes, plan)
     return step, (state, inputs), (state_sh, input_sh)
@@ -142,7 +155,7 @@ def build_prefill_cell(cfg: ModelConfig, spec: ShapeSpec, plan: ShardingPlan):
 
     params_sh = shardings_for(params, param_axes, plan)
     input_sh = shardings_for(inputs, input_axes, plan)
-    return fwd, (params, inputs), (params_sh, input_sh)
+    return _under(plan, fwd), (params, inputs), (params_sh, input_sh)
 
 
 def build_decode_cell(cfg: ModelConfig, spec: ShapeSpec, plan: ShardingPlan):
@@ -153,14 +166,18 @@ def build_decode_cell(cfg: ModelConfig, spec: ShapeSpec, plan: ShardingPlan):
         cfg, spec.global_batch, spec.seq_len, abstract=True)
     inputs, input_axes = input_specs(cfg, spec)
 
+    state_sh = shardings_for(state, state_axes, plan)
+    kw = ({"cache_shardings": state_sh} if cfg.family in ("dense", "moe")
+          else {})
+
     def serve_step(params, state, tokens, pos):
-        return family.decode(params, state, tokens, pos, cfg)
+        return family.decode(params, state, tokens, pos, cfg, **kw)
 
     shard_tuple = (
         shardings_for(params, param_axes, plan),
-        shardings_for(state, state_axes, plan),
+        state_sh,
         shardings_for(inputs["tokens"], input_axes["tokens"], plan),
         shardings_for(inputs["pos"], input_axes["pos"], plan),
     )
     abstract = (params, state, inputs["tokens"], inputs["pos"])
-    return serve_step, abstract, shard_tuple
+    return _under(plan, serve_step), abstract, shard_tuple

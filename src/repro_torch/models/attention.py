@@ -65,6 +65,24 @@ def dense_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=None,
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
 
+def partial_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=None,
+                      scale=None):
+    """One part of a key sequence split over ranks (split-KV decode):
+    (max, Σ exp(s − max), Σ exp(s − max)·v) over this part's keys, the
+    scores as in `dense_attention`; `parallel.collectives.
+    split_kv_combine` joins the parts.  q: (B,Sq,H,D); k,v: (B,Skv,H,D);
+    returns (B,H,Sq), (B,H,Sq), (B,H,Sq,D) in float32."""
+    d = q.shape[-1]
+    scale = scale or d**-0.5
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    scores = scores + _mask(q_pos[:, None], kv_pos[:, None], causal=causal,
+                            window=window)
+    top = scores.amax(dim=-1)
+    e = torch.exp(scores - top[..., None])
+    acc = torch.einsum("bhqk,bkhd->bhqd", e.to(v.dtype), v).float()
+    return top, e.sum(dim=-1), acc
+
+
 def flash_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=None,
                     kv_len=None, scale=None, q_chunk=1024, kv_chunk=1024):
     """Online-softmax chunked attention.

@@ -11,6 +11,18 @@ Every family exposes:
 
 Every family of the reference is here; `get_family` of another raises
 ``KeyError``, as the reference's ``FAMILIES[cfg.family]``.
+
+Under a plan (`parallel.use_plan`) ``loss`` runs on this rank's part of
+the batch and of the params and returns the rank's *share* of the
+global loss: the cross-entropy summed over its tokens over the global
+token count, plus its aux over the number of batch ranks, so the shares
+summed over the batch axes are the global loss and their gradients the
+global gradient (`train/step.py` sums them so).  The cross-entropy is
+vocab-parallel where the logits are the rank's vocab columns, and the
+accuracy takes the argmax across the shards.  The metrics are global.
+The dense, MoE and RWKV families run tensor-, expert- and fully-sharded;
+rglru, vlm and encdec run under a pure data plan (a model axis of 1, no
+FSDP) and raise under any other (ROADMAP A12c).
 """
 from __future__ import annotations
 
@@ -22,14 +34,25 @@ import torch
 
 from repro_torch.models import rglru, rwkv6, transformer, vlm, whisper
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import vocab_range
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel.axes import current_plan, mesh_shape
+from repro_torch.parallel.sharding_utils import param_shardings
+from repro_torch.tree import tree_leaves
+
+
+def _nll(logits, targets, vocab=(0, ())):
+    start, groups = vocab
+    if groups:
+        return col.vocab_parallel_nll(logits, targets, start, groups)
+    lse = torch.logsumexp(logits, dim=-1)
+    return lse - torch.gather(logits, -1, targets[..., None].long())[..., 0]
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                   mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mean next-token CE.  logits (B,S,V) fp32; targets (B,S) int."""
-    lse = torch.logsumexp(logits, dim=-1)
-    true = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    nll = lse - true
+    nll = _nll(logits, targets)
     if mask is not None:
         nll = nll * mask
         return nll.sum() / torch.clamp(mask.sum(), min=1.0)
@@ -41,41 +64,82 @@ def _accuracy(logits, targets):
     return (logits.argmax(-1) == targets).to(logits.dtype).mean()
 
 
+def _loss(logits, aux, batch, cfg: ModelConfig, *, tp: bool = True):
+    """(loss, metrics) of logits and aux; under a plan the rank's share and
+    the global metrics (module docstring).  ``tp``: the family runs
+    tensor-parallel (its logits may be the rank's vocab columns)."""
+    targets = batch["targets"]
+    plan = current_plan()
+    if plan is None:
+        ce = cross_entropy(logits, targets)
+        return ce + aux, {"ce": ce, "aux": aux,
+                          "acc": _accuracy(logits.detach(), targets)}
+    vocab = vocab_range(cfg, param_shardings(cfg, plan)["embed"]) if tp \
+        else (0, ())
+    groups = col.axis_groups(plan.mesh, col.batch_axes(plan))
+    n_ranks = col.group_size(groups)
+    n = targets.numel() * n_ranks
+    ce = _nll(logits, targets, vocab).sum() / n
+    aux = aux / n_ranks
+    start, vgroups = vocab
+    right = (col.vocab_parallel_argmax(logits, start, vgroups) if vgroups
+             else logits.detach().argmax(-1)) == targets
+    sums = col.all_reduce_sum(torch.stack([
+        ce.detach(), aux.detach(), right.sum().to(torch.float32)]), groups)
+    return ce + aux, {"ce": sums[0], "aux": sums[1], "acc": sums[2] / n}
+
+
+def _refuse_sharded(cfg: ModelConfig) -> None:
+    """rglru, vlm and encdec run under a plan only where it leaves every
+    param whole (a model axis of 1, no FSDP): pure data parallelism."""
+    plan = current_plan()
+    if plan is None:
+        return
+    if mesh_shape(plan.mesh).get("model", 1) > 1 or any(
+            col.sharded_over(sh)
+            for sh in tree_leaves(param_shardings(cfg, plan))):
+        raise NotImplementedError(
+            f"the {cfg.family} family runs under a plan only as pure data "
+            f"parallelism (a model axis of 1, no FSDP); its tensor and "
+            f"fully-sharded parallelism is not ported yet (ROADMAP A12c)")
+
+
+def _whole_only(fn: Callable) -> Callable:
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        _refuse_sharded(args[-1] if "cfg" not in kw else kw["cfg"])
+        return fn(*args, **kw)
+    return run
+
+
 def _lm_loss(params, batch, cfg: ModelConfig):
     logits, aux = transformer.forward(params, batch["tokens"], cfg)
-    ce = cross_entropy(logits, batch["targets"])
-    return ce + aux, {"ce": ce, "aux": aux,
-                      "acc": _accuracy(logits.detach(), batch["targets"])}
+    return _loss(logits, aux, batch, cfg)
 
 
 def _rwkv_loss(params, batch, cfg: ModelConfig):
     logits, aux, _ = rwkv6.forward(params, batch["tokens"], cfg)
-    ce = cross_entropy(logits, batch["targets"])
-    return ce + aux, {"ce": ce, "aux": aux,
-                      "acc": _accuracy(logits.detach(), batch["targets"])}
+    return _loss(logits, aux, batch, cfg)
 
 
+@_whole_only
 def _rglru_loss(params, batch, cfg: ModelConfig):
     logits, aux = rglru.forward(params, batch["tokens"], cfg)
-    ce = cross_entropy(logits, batch["targets"])
-    return ce + aux, {"ce": ce, "aux": aux,
-                      "acc": _accuracy(logits.detach(), batch["targets"])}
+    return _loss(logits, aux, batch, cfg, tp=False)
 
 
+@_whole_only
 def _vlm_loss(params, batch, cfg: ModelConfig):
     logits, aux = vlm.forward(params, batch["tokens"], batch["image_embeds"],
                               cfg)
-    ce = cross_entropy(logits, batch["targets"])
-    return ce + aux, {"ce": ce, "aux": aux,
-                      "acc": _accuracy(logits.detach(), batch["targets"])}
+    return _loss(logits, aux, batch, cfg, tp=False)
 
 
+@_whole_only
 def _encdec_loss(params, batch, cfg: ModelConfig):
     logits, aux = whisper.forward(params, batch["src_embeds"],
                                   batch["tokens"], cfg)
-    ce = cross_entropy(logits, batch["targets"])
-    return ce + aux, {"ce": ce, "aux": aux,
-                      "acc": _accuracy(logits.detach(), batch["targets"])}
+    return _loss(logits, aux, batch, cfg, tp=False)
 
 
 def _lm_decode_state(cfg, batch, max_len, abstract=False, device=None):
@@ -126,11 +190,13 @@ FAMILIES: dict[str, Family] = {
     "rwkv": Family(rwkv6.init_rwkv, _rwkv_loss, rwkv6.decode_step,
                    _rwkv_decode_state, ("tokens", "targets"),
                    prefill=rwkv6.prefill_step),
-    "rglru": Family(rglru.init_rglru, _rglru_loss, rglru.decode_step,
-                    _rglru_decode_state, ("tokens", "targets")),
-    "vlm": Family(vlm.init_vlm, _vlm_loss, vlm.decode_step,
+    "rglru": Family(rglru.init_rglru, _rglru_loss,
+                    _whole_only(rglru.decode_step), _rglru_decode_state,
+                    ("tokens", "targets")),
+    "vlm": Family(vlm.init_vlm, _vlm_loss, _whole_only(vlm.decode_step),
                   _vlm_decode_state, ("tokens", "targets", "image_embeds")),
-    "encdec": Family(whisper.init_whisper, _encdec_loss, whisper.decode_step,
+    "encdec": Family(whisper.init_whisper, _encdec_loss,
+                     _whole_only(whisper.decode_step),
                      _encdec_decode_state,
                      ("tokens", "targets", "src_embeds")),
 }

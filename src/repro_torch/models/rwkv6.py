@@ -22,6 +22,24 @@ reference runs it in XLA.  Parameters stay stacked with a leading
 (one unbind, so a backward stacks each leaf's gradient once instead of
 adding a full-size zero tensor a layer).  State leaves keep batch at
 axis 1.
+
+Tensor parallelism under a plan (`parallel.use_plan`; the shardings from
+`param_shardings`): time-mix's ``wr``/``wk``/``wv``/``wg`` and
+``w_lora_b`` are column-parallel over the rank's heads, and so are
+``w0``, ``u`` and the GroupNorm (axis ``"state"``), so the WKV runs on
+the rank's H/m heads (B7 on the card, through `ops.wkv`), the per-head
+GroupNorm stays local and ``wo`` is row-parallel.  Channel-mix's ``wk``
+is column-parallel over ``mlp`` and ``wv`` row-parallel; its receptance
+``wr`` is column-parallel over ``heads``, so the rank holds only its
+slice of ``rr``: the partial ``kk @ wv`` is reduce-scattered to that
+slice (rather than all-reduced and sliced, whose backward would hand the
+rank's partial only its slice's cotangent), multiplied, and the slices
+gathered.  Token shift and ``_ddlerp`` act on the replicated ``x``;
+every replicated tensor entering a split product goes through *f*
+(`parallel.collectives.copy_to_model`).  The decode state's ``wkv``
+leaf (``"state"`` → model) holds the rank's heads, so decode under a
+plan is TP decode through the same `_time_mix`.  FSDP leaves are
+gathered a layer at a time, inside the layer's recompute.
 """
 from __future__ import annotations
 
@@ -37,12 +55,16 @@ from repro_torch.kernels.rwkv_wkv import ops as wkv_ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.init_utils import KeyGen, make, split_tree
 from repro_torch.models.layers import (
+    _tp_axis,
     apply_norm,
     embed_tokens,
     init_embedding,
     init_norm,
     lm_head,
 )
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel.axes import current_plan
+from repro_torch.parallel.sharding_utils import param_shardings, per_layer
 from repro_torch.tree import tree_map
 
 LOG_DECAY_MIN = -5.0  # clamp on per-token log decay (numerical guard)
@@ -160,18 +182,30 @@ def _last_active(x, lengths, prev_tok):
 
 
 def _time_mix(p: dict, x, prev_tok, wkv_state, cfg: ModelConfig, *,
-              chunked: bool = True, lengths=None):
+              chunked: bool = True, lengths=None, sh=None):
     b, s, d = x.shape
-    h, hd = cfg.n_rwkv_heads, cfg.rwkv_head_dim
+    hd = cfg.rwkv_head_dim
+    h = cfg.n_rwkv_heads
+    ax = _tp_axis(sh, "wr")
+    if ax is not None:
+        if col.model_dim(sh["w0"]) is None:
+            raise ValueError(f"the plan splits the {h} RWKV heads' columns "
+                             f"over a model axis of {ax.size} but not the "
+                             "heads: a head would split")
+        h //= ax.size
     xx = _token_shift(x, prev_tok)
     streams = _ddlerp(p["mix"], x, xx, cfg)  # (B, S, 5, d)
     xr, xk, xv, xg, xw = [streams[:, :, i] for i in range(5)]
+    lo = torch.tanh(xw @ p["w_lora_a"])
+    if ax is not None:
+        xr, xk, xv, xg, lo = (col.copy_to_model(a, ax.groups)
+                              for a in (xr, xk, xv, xg, lo))
     r = (xr @ p["wr"]).reshape(b, s, h, hd)
     k = (xk @ p["wk"]).reshape(b, s, h, hd)
     v = (xv @ p["wv"]).reshape(b, s, h, hd)
     g = F.silu(xg @ p["wg"])
-    omega = p["w0"].reshape(1, 1, h, hd) + (torch.tanh(xw @ p["w_lora_a"])
-                                            @ p["w_lora_b"]).reshape(b, s, h, hd)
+    omega = p["w0"].reshape(1, 1, h, hd) + (lo @ p["w_lora_b"]).reshape(
+        b, s, h, hd)
     # `clip`, not `torch.clamp`: the reference's gradient at a tie
     lw = clip(-torch.exp(omega.float()), LOG_DECAY_MIN, -1e-6)
 
@@ -197,28 +231,49 @@ def _time_mix(p: dict, x, prev_tok, wkv_state, cfg: ModelConfig, *,
     var = y.var(-1, keepdim=True, correction=0)
     y = (y - mu) * torch.rsqrt(var + 64e-5)
     y = y * p["gn_scale"][None, None] + p["gn_bias"][None, None]
-    y = y.reshape(b, s, d).to(x.dtype) * g
+    y = y.reshape(b, s, h * hd).to(x.dtype) * g
     shift = (x[:, -1, :] if lengths is None
              else _last_active(x, lengths, prev_tok))
-    return y @ p["wo"], shift, wkv_state
+    out = y @ p["wo"]
+    if ax is not None:
+        out = col.reduce_from_model(out, ax.groups)
+    return out, shift, wkv_state
 
 
-def _channel_mix(p: dict, x, prev_tok, cfg: ModelConfig, *, lengths=None):
+def _channel_mix(p: dict, x, prev_tok, cfg: ModelConfig, *, lengths=None,
+                 sh=None):
     xx = _token_shift(x, prev_tok)
     streams = _ddlerp(p["mix"], x, xx, cfg)
     xr, xk = streams[:, :, 0], streams[:, :, 1]
-    kk = torch.square(torch.relu(xk @ p["wk"]))
-    rr = torch.sigmoid(xr @ p["wr"])
     shift = (x[:, -1, :] if lengths is None
              else _last_active(x, lengths, prev_tok))
-    return rr * (kk @ p["wv"]), shift
+    axk, axr = _tp_axis(sh, "wk"), _tp_axis(sh, "wr")
+    if axk is None and axr is None:
+        kk = torch.square(torch.relu(xk @ p["wk"]))
+        rr = torch.sigmoid(xr @ p["wr"])
+        return rr * (kk @ p["wv"]), shift
+    if axk is not None:
+        xk = col.copy_to_model(xk, axk.groups)
+    kv = torch.square(torch.relu(xk @ p["wk"])) @ p["wv"]  # partial if axk
+    if axr is None:
+        return torch.sigmoid(xr @ p["wr"]) * col.reduce_from_model(
+            kv, axk.groups), shift
+    rr = torch.sigmoid(col.copy_to_model(xr, axr.groups) @ p["wr"])
+    if axk is not None:
+        kv = col.reduce_scatter(kv, axr.groups, -1)
+    else:  # whole kv, of which this rank uses its slice
+        n = rr.shape[-1]
+        kv = col.copy_to_model(kv, axr.groups)[..., axr.index * n:
+                                                (axr.index + 1) * n]
+    return col.gather_from_model(rr * kv, axr.groups, -1), shift
 
 
 def init_rwkv_state(cfg: ModelConfig, batch: int, *, abstract=False,
-                    device=None):
+                    device=None, heads: int | None = None):
     """Zero decode state, (state, axes): per layer the two token-shift
-    vectors and the WKV matrix, batch at axis 1."""
-    h, hd, d = cfg.n_rwkv_heads, cfg.rwkv_head_dim, cfg.d_model
+    vectors and the WKV matrix, batch at axis 1.  ``heads``: the WKV
+    heads it holds (default all; a rank's under tensor parallelism)."""
+    h, hd, d = heads or cfg.n_rwkv_heads, cfg.rwkv_head_dim, cfg.d_model
     L = (cfg.n_layers,)
     kw = dict(init="zeros", abstract=abstract, device=device)
     tree = {
@@ -235,15 +290,20 @@ def init_rwkv_state(cfg: ModelConfig, batch: int, *, abstract=False,
     return split_tree(tree)
 
 
-def _layer(x, lp, state, cfg: ModelConfig, *, chunked=True, lengths=None):
+def _layer(x, lp, state, cfg: ModelConfig, *, chunked=True, lengths=None,
+           sh=None):
+    if sh is not None:
+        lp = col.gather_fsdp(lp, sh)
     h = apply_norm(lp["att_norm"], x, cfg)
     att, att_shift, wkv = _time_mix(lp["att"], h, state["att_shift"],
                                     state["wkv"], cfg, chunked=chunked,
-                                    lengths=lengths)
+                                    lengths=lengths,
+                                    sh=None if sh is None else sh["att"])
     x = x + att.to(x.dtype)
     h = apply_norm(lp["ffn_norm"], x, cfg)
     ffn, ffn_shift = _channel_mix(lp["ffn"], h, state["ffn_shift"], cfg,
-                                  lengths=lengths)
+                                  lengths=lengths,
+                                  sh=None if sh is None else sh["ffn"])
     x = x + ffn.to(x.dtype)
     new_state = {"att_shift": att_shift.to(cfg.dtype),
                  "ffn_shift": ffn_shift.to(cfg.dtype),
@@ -263,23 +323,32 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     b, _ = tokens.shape
     device = params["embed"]["table"].device
     if state is None:
-        state, _ = init_rwkv_state(cfg, b, device=device)
-    x = embed_tokens(params["embed"], tokens, cfg)
-    layer_fn = functools.partial(_layer, cfg=cfg, chunked=chunked,
-                                 lengths=lengths)
+        state, _ = init_rwkv_state(
+            cfg, b, device=device,
+            heads=params["layers"]["att"]["w0"].shape[1])
+    plan = current_plan()
+    sh = None if plan is None else param_shardings(cfg, plan)
+    emb = params["embed"]
+    if sh is not None:
+        emb = col.gather_fsdp(emb, sh["embed"])
+    x = embed_tokens(emb, tokens, cfg,
+                     sh=None if sh is None else sh["embed"])
+    layer_fn = functools.partial(
+        _layer, cfg=cfg, chunked=chunked, lengths=lengths,
+        sh=None if sh is None else per_layer(sh["layers"]))
     if cfg.remat and torch.is_grad_enabled():
         # the layer draws no random numbers: no RNG state to keep
         layer_fn = functools.partial(checkpoint, layer_fn, use_reentrant=False,
                                      preserve_rng_state=False)
-    per_layer = tree_map(lambda a: a.unbind(0), params["layers"])
+    unbound = tree_map(lambda a: a.unbind(0), params["layers"])
     sts = []
     for i in range(cfg.n_layers):
-        lp = tree_map(lambda a: a[i], per_layer)
+        lp = tree_map(lambda a: a[i], unbound)
         st = tree_map(lambda a: a[i], state)
         x, ns = layer_fn(x, lp, st)
         sts.append(ns)
     new_states = {key: torch.stack([ns[key] for ns in sts]) for key in sts[0]}
-    logits = lm_head(params["embed"], x, cfg)
+    logits = lm_head(emb, x, cfg, sh=None if sh is None else sh["embed"])
     return logits, torch.zeros((), dtype=torch.float32, device=device), \
         new_states
 

@@ -39,14 +39,42 @@ the global reductions SPMD inserts     explicit collectives on the batch
                                        leaves a local tensor as it is and
                                        redistributes a ``DTensor`` whose
                                        placements differ from the plan's
+TP: ``heads``/``kv_heads``/``mlp``/    Megatron-LM's pairs on the model
+``vocab`` → ``"model"``, SPMD's        axis's group: *f* (`collectives.
+all-reduces around the split products  copy_to_model`) where a replicated
+                                       tensor enters a split product, *g*
+                                       (`reduce_from_model`) where partial
+                                       sums leave; vocab-parallel
+                                       embedding, logits, cross-entropy and
+                                       argmax (`models/layers.py`,
+                                       `models/families.py`)
+EP: ``expert`` → ``"model"``,          the local-experts body
+``apply_moe_shard_map``'s ``psum``     (`models/moe.py`): positions from
+                                       the global cumsum, one `reduce_from_
+                                       model` of the token-granular sum
+FSDP: ``embed`` → ``"data"``, SPMD's   `collectives.gather_fsdp` a layer
+all-gathers on use and their           at a time (`gather_for_use`: its
+reduce-scatter transposes              backward reduce-scatters); the
+                                       train step sums each gradient over
+                                       the batch axes its leaf is *not*
+                                       sharded over (`train/step.py`)
+split-KV: ``cache_seq`` → ``"model"``  each rank attends over its slice of
+(``cache_seq_shard``), SPMD's          the cache (`models/attention.
+reductions of the softmax              partial_attention`), the parts
+                                       joined by `collectives.
+                                       split_kv_combine`
 =====================================  ======================================
 
 The vision path (the paper's workload, DESIGN.md §7) is pure data
 parallelism over `VISION_RULES`: the data-parallel VWW step
 (`train.vision`), the sharded `VisionEngine` and `StreamEngine`, and
-replica pools over `launch.mesh.make_submeshes`.  The LM path's
-scale-out (expert parallelism, FSDP/TP steps, sharded decode) is not
-ported yet.
+replica pools over `launch.mesh.make_submeshes`.  The LM path runs
+under `plan_for`: the dense, MoE and RWKV families train tensor-,
+expert- and fully-sharded (`train/step.py`, `launch/train.py --world
+--model-parallel`), decode split-KV under ``cache_seq_shard``, and the
+`ServeEngine`/`SessionEngine` split their slots over ``"data"``
+(``mesh=``).  The rglru, vlm and encdec families run under a pure data
+plan and raise under a model axis or FSDP (ROADMAP A12c).
 """
 from repro_torch.parallel.axes import (
     P,

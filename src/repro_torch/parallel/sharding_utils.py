@@ -9,6 +9,7 @@ from __future__ import annotations
 from typing import Any
 
 import numpy as np
+import torch
 
 from repro_torch.parallel.axes import (
     P,
@@ -70,3 +71,30 @@ def local_tree(values: Any, shardings: Any) -> Any:
     """Each leaf's part on this rank (`NamedSharding.local`): what a rank
     holds of a tree the reference would ``device_put`` by ``shardings``."""
     return tree_map(lambda x, sh: sh.local(x), values, shardings)
+
+
+def per_layer(shardings: Any) -> Any:
+    """The shardings of one layer's slice of stacked (``"layers"``, ...)
+    leaves: each spec without its leading entry."""
+    return tree_map(lambda sh: NamedSharding(sh.mesh, P(*sh.spec[1:])),
+                    shardings)
+
+
+_PARAM_SHARDINGS: dict = {}
+
+
+def param_shardings(cfg, plan: ShardingPlan) -> Any:
+    """The `NamedSharding` of every parameter of ``cfg``'s family under
+    ``plan`` (`shardings_for` over the family's abstract init), computed
+    once a (config, rule table, mesh)."""
+    key = (cfg, tuple(sorted(plan.rules.items())), id(plan.mesh))
+    hit = _PARAM_SHARDINGS.get(key)
+    if hit is None or hit[0] is not plan.mesh:
+        from repro_torch.models.families import get_family
+        from repro_torch.models.init_utils import abstract_init
+
+        with abstract_init():
+            params, axes = get_family(cfg).init(torch.Generator(), cfg)
+        hit = (plan.mesh, shardings_for(params, axes, plan))
+        _PARAM_SHARDINGS[key] = hit
+    return hit[1]

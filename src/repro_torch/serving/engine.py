@@ -1,5 +1,5 @@
 """LM serving: batched decode with continuous batching; port of
-`repro.serving.engine` (single device).
+`repro.serving.engine`.
 
 ``ServeEngine`` is a thin adapter over the shared scheduler core
 (`serving/scheduler.py`): the core owns the arrival queue, the slot
@@ -20,6 +20,17 @@ metered by `obs.metrics.counted_lru_cache`).  PyTorch runs eagerly, so
 the cache holds the step closures, not compilations.  The decode state
 lives on the engine's device and is updated in place when a slot is
 recycled (`_reset_slot`).
+
+Scale-out (``mesh=``, as the reference's ``_slot_shardings``/``_jit_step``):
+the slot table (axis 1 of every decode-state leaf, per
+`validate_slot_layout`) is split over the mesh's batch axes (``"data"``),
+and ``max_batch`` must divide over them.  Every rank of the world runs
+the scheduler on the same requests; each holds and computes only its
+slots' rows of the state (`parallel.collectives.SlotShards`), on the
+whole params (replicated: the model axis is left unused, as the
+reference's ``_jit_step`` leaves it), and the sampled tokens are
+all-gathered, so every rank absorbs the same tokens.  A recycled slot is
+zeroed on the rank that owns it.
 """
 from __future__ import annotations
 
@@ -32,6 +43,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.families import get_family, validate_slot_layout
 from repro_torch.obs.metrics import counted_lru_cache
+from repro_torch.parallel.axes import current_plan
+from repro_torch.parallel.collectives import SlotShards, batch_axes, group_size
+from repro_torch.parallel.plans import vision_plan_for
 from repro_torch.serving.scheduler import ScheduledRequest, SlotEngine
 from repro_torch.serving.vision import _tree_to
 from repro_torch.tree import tree_leaves, tree_map
@@ -134,12 +148,18 @@ def greedy_generate(params, cfg: ModelConfig, prompts, steps: int,
     Prefill routes through the shared chunked step: ``prefill_chunk=None``
     (default) eats the whole prompt in one step; an explicit C prefills C
     tokens a step; ``prefill_chunk=1`` runs the token-by-token loop.
+
+    Under a plan ``params`` are this rank's parts, and `_sharded_greedy`
+    runs (prefill token by token).
     """
     family = get_family(cfg)
     dev = _device_of(params)
     prompts_np = np.asarray(torch.as_tensor(prompts).cpu(), np.int64)
     b, p = prompts_np.shape
     max_len = max_len or (p + steps)
+    plan = current_plan()
+    if plan is not None:
+        return _sharded_greedy(params, cfg, prompts_np, steps, max_len, plan)
     state, _ = family.init_decode_state(cfg, b, max_len, device=dev)
     step_fn = _decode_step_for(cfg)
 
@@ -171,6 +191,56 @@ def greedy_generate(params, cfg: ModelConfig, prompts, steps: int,
     return torch.stack(out, dim=1)
 
 
+@torch.no_grad()
+def _sharded_greedy(params, cfg: ModelConfig, prompts_np, steps: int,
+                    max_len: int, plan) -> torch.Tensor:
+    """`greedy_generate` under a plan: the decode state made whole and cut
+    to this rank's part (`shardings_for` over the family's state axes:
+    its rows of the batch, its slice of the KV cache's sequence under
+    ``cache_seq_shard``, its WKV heads), the prompt fed token by token
+    through the family's sharded decode (split-KV for the KV-cache
+    families), the argmax taken across the vocab shards, and each rank's
+    rows gathered: every rank returns the whole (B, steps)."""
+    from repro_torch.models.layers import vocab_range
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel.axes import NamedSharding, logical_spec
+    from repro_torch.parallel.sharding_utils import (
+        local_tree,
+        param_shardings,
+        shardings_for,
+    )
+
+    family = get_family(cfg)
+    dev = _device_of(params)
+    b, p = prompts_np.shape
+    state, axes = family.init_decode_state(cfg, b, max_len, device=dev)
+    state_sh = shardings_for(state, axes, plan)
+    state = local_tree(state, state_sh)
+    by_row = NamedSharding(plan.mesh, logical_spec((b,), ("cache_batch",),
+                                                   plan))
+    rows = by_row.local(np.arange(b))
+    row_groups = col.axis_groups(plan.mesh, col.leaf_axes(by_row)[0])
+    kw = ({"cache_shardings": state_sh} if cfg.family in ("dense", "moe")
+          else {})
+    start, vgroups = vocab_range(cfg, param_shardings(cfg, plan)["embed"])
+
+    def step(tokens, at):
+        pos = torch.full((len(rows),), at, dtype=torch.int64, device=dev)
+        logits, new = family.decode(params, state, tokens, pos, cfg, **kw)
+        return logits[:, -1], new
+
+    prompts = torch.from_numpy(prompts_np[rows]).to(dev)
+    for t in range(p):
+        last, state = step(prompts[:, t:t + 1], t)
+    out = []
+    for i in range(steps):
+        tok = col.vocab_parallel_argmax(last, start, vgroups) if vgroups \
+            else torch.argmax(last, dim=-1)
+        out.append(tok)
+        last, state = step(tok[:, None], p + i)
+    return col.all_gather_batch(torch.stack(out, dim=1), row_groups)
+
+
 class ServeEngine(SlotEngine):
     """Continuous-batching LM engine: scheduler core + decode adapter.
 
@@ -186,10 +256,14 @@ class ServeEngine(SlotEngine):
                  max_len: int = 2048, eos_id: int | None = None,
                  pad_id: int = 0, prefill_chunk: int = 1,
                  max_queue: int | None = None,
-                 evict: str = "drop-newest", device=None, **core):
+                 evict: str = "drop-newest", mesh=None, device=None,
+                 **core):
         """``params``: the port's tree (`init_rwkv`, `init_lm`, or a
         reference tree through `compat.tree_from_reference`), moved to
         the device.
+        ``mesh``: a mesh (`launch.mesh`) to split the slots over its
+        ``data`` axis; ``max_batch`` must divide over it, and every rank
+        of the world must drive the engine alike.
         ``device``: None ⇒ the GPU (raises when there is none).
         ``core`` forwards the scheduler's fault-tolerance and cadence
         knobs to `SlotEngine`."""
@@ -203,8 +277,19 @@ class ServeEngine(SlotEngine):
         self.eos_id = eos_id
         self.pad_id = pad_id
         self.prefill_chunk = prefill_chunk
+        self.mesh = mesh
+        self._shards = None
+        rows = max_batch
+        if mesh is not None:
+            n = group_size(mesh.get_group(a)
+                           for a in batch_axes(vision_plan_for(mesh)))
+            if max_batch % n:
+                raise ValueError(f"max_batch={max_batch} must divide over "
+                                 f"the data axis ({n})")
+            self._shards = SlotShards(mesh, max_batch)
+            rows = len(self._shards.rows)
         self.state, _ = self.family.init_decode_state(
-            cfg, max_batch, max_len, device=self.device)
+            cfg, rows, max_len, device=self.device)
         self._step = _decode_step_for(cfg)
         self._chunk_step = (_chunk_step_for(cfg, prefill_chunk)
                             if prefill_chunk > 1 else None)
@@ -236,7 +321,12 @@ class ServeEngine(SlotEngine):
     def _reset_slot(self, i: int) -> None:
         """Zero slot i's state (batch axis = 1 across all state leaves), in
         place, so a recycled slot never sees the previous request's
-        recurrent state."""
+        recurrent state; under a mesh on the rank that holds its row."""
+        if self._shards is not None:
+            (at,) = np.nonzero(self._shards.rows == i)
+            if not len(at):
+                return
+            i = int(at[0])
         for leaf in tree_leaves(self.state):
             leaf[:, i] = 0
 
@@ -284,7 +374,9 @@ class ServeEngine(SlotEngine):
             pos[i] = self._slot_pos[i]
             adv[i] = n
 
-        on_dev = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
+        rows = slice(None) if self._shards is None else self._shards.rows
+        on_dev = lambda a: torch.from_numpy(  # noqa: E731
+            np.ascontiguousarray(a[rows])).to(self.device)
         if self._chunk_step is not None and int(adv.max()) > 1:
             last, self.state = self._chunk_step(
                 self.params, self.state, on_dev(tokens), on_dev(pos),
@@ -294,8 +386,10 @@ class ServeEngine(SlotEngine):
             # one-token step.
             last, self.state = self._step(self.params, self.state,
                                           on_dev(tokens[:, :1]), on_dev(pos))
-        nxt = torch.argmax(last, dim=-1).cpu().numpy()
-        return nxt, adv
+        nxt = torch.argmax(last, dim=-1)
+        if self._shards is not None:
+            nxt = self._shards.gather(nxt, (b,), nxt.dtype, self.device)
+        return nxt.cpu().numpy(), adv
 
     def _validate(self, i: int, req: Request, result) -> bool:
         """A sampled token is a non-negative vocab index; a corrupted slot

@@ -1,5 +1,7 @@
 """Stateful streaming-LM sessions: long-lived conversations in slots;
-port of `repro.serving.sessions` (imports rewritten, no mesh).
+port of `repro.serving.sessions` (imports rewritten).  ``mesh=`` splits
+the slots over the data axis as `ServeEngine`'s does: each rank keeps its
+sessions' recurrent state rows across every turn.
 
 The LM twin of a video stream (DESIGN.md §9 → §12.4): a
 ``SessionRequest`` carries a *sequence of turns* and occupies its slot
@@ -53,7 +55,7 @@ class SessionRequest(ScheduledRequest):
 class SessionEngine(ServeEngine):
     """Multi-turn streaming-LM engine over the `ServeEngine` adapter.
 
-    Accepts every `ServeEngine` knob (``device``; ``prefill_chunk``
+    Accepts every `ServeEngine` knob (``device``, ``mesh``; ``prefill_chunk``
     routes turn prompts through the fused chunked-WKV prefill; ``core``
     kwargs reach the scheduler's fault-tolerance layer)."""
 

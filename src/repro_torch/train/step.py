@@ -11,6 +11,19 @@ Gradients come
 from `torch.autograd.grad` over detached copies of the parameter leaves,
 as in `train/vision.py`.  Gradient accumulation sums the micro-batch
 gradients from zeros in the reference's order, then divides.
+
+Under a plan (`parallel.use_plan`) every rank runs the step on its parts
+of the state (`shardings_for(state, state_logical_axes(...), plan)`,
+`sharding_utils.local_tree`) and of the batch (split over the batch
+axes), as the reference's sharded jit does.  The loss is the rank's
+share (`models/families.py`); the gradient rule: each leaf's gradient is
+summed over exactly the batch axes the leaf is *not* sharded over (an
+FSDP leaf's gather already reduce-scattered it over the axes it is
+sharded over), and over nothing else: the model axis's *f*/*g* pairs
+give a leaf replicated over it the same whole gradient on every model
+rank.  The clip's global norm and ``int8_ef``'s scales are then taken
+over every shard, the reported loss is the shares' sum over the batch
+axes, and the update runs leaf by leaf on the rank's parts.
 """
 from __future__ import annotations
 
@@ -20,10 +33,35 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.families import get_family
-from repro_torch.optim.optimizers import Optimizer
+from repro_torch.optim.optimizers import Optimizer, global_norm
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel.axes import current_plan
+from repro_torch.parallel.sharding_utils import param_shardings
 from repro_torch.train.compression import compress_grads_int8_ef
 from repro_torch.train.vision import _check_compression
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+
+def reduce_gradients(grads, shardings, plan):
+    """The gradient rule under ``plan``: each leaf summed over the batch
+    axes its sharding does not split (one flat all-reduce a set of
+    axes), and over nothing else."""
+    batch = col.batch_axes(plan)
+    axes = tree_leaves(tree_map(
+        lambda g, sh: tuple(a for a in batch
+                            if a not in col.sharded_over(sh)),
+        grads, shardings))
+    out = tree_leaves(grads)
+    buckets: dict[tuple, list[int]] = {}
+    for i, a in enumerate(axes):
+        if a:
+            buckets.setdefault(a, []).append(i)
+    for a, idx in buckets.items():
+        summed = col.all_reduce_tree({str(i): out[i] for i in idx},
+                                     col.axis_groups(plan.mesh, a))
+        for i in idx:
+            out[i] = summed[str(i)]
+    return tree_unflatten(grads, out)
 
 
 def make_train_step(
@@ -46,6 +84,7 @@ def make_train_step(
 
     def train_step(state: dict, batch: dict):
         params = state["params"]
+        plan = current_plan()
         if accum_steps == 1:
             loss, metrics, grads = value_and_grad(params, batch)
         else:
@@ -64,11 +103,20 @@ def make_train_step(
             loss = loss / accum_steps
             metrics = {}
 
+        sh = grad_norm = None
+        if plan is not None:
+            sh = param_shardings(cfg, plan)
+            grads = reduce_gradients(grads, sh, plan)
+            loss = col.all_reduce_sum(loss, col.axis_groups(
+                plan.mesh, col.batch_axes(plan)))
         extras = dict(state.get("extras", {}))
         if grad_compression == "int8_ef":
             grads, extras["ef_error"] = compress_grads_int8_ef(
-                grads, extras.get("ef_error"))
-        optimizer.update_in_place(grads, state["opt"], params, state["step"])
+                grads, extras.get("ef_error"), sh)
+        if plan is not None:
+            grad_norm = global_norm(grads, sh)
+        optimizer.update_in_place(grads, state["opt"], params, state["step"],
+                                  grad_norm=grad_norm)
         del grads
         state["step"] = state["step"] + 1
         if extras:
@@ -86,6 +134,10 @@ def make_eval_step(cfg: ModelConfig) -> Callable:
     @torch.no_grad()
     def eval_step(params, batch):
         loss, metrics = family.loss(params, batch, cfg)
+        plan = current_plan()
+        if plan is not None:  # the shares' sum: the global loss
+            loss = col.all_reduce_sum(loss, col.axis_groups(
+                plan.mesh, col.batch_axes(plan)))
         metrics = dict(metrics)
         metrics["loss"] = loss
         return metrics

@@ -1487,3 +1487,37 @@ def test_one_rank_nccl_dp_step_matches_the_single_process_step(cuda):
                         tree_leaves(ranks.arrays(new[key]))):
             assert np.abs(a - w).max() <= 1e-3
     assert dp["launches"] == {"forward": 1, "dx": 1, "dw": 1}
+
+
+def test_one_rank_nccl_tp_step_matches_the_single_process_step(cuda):
+    """The LM train step under ``plan_for`` in a one-rank NCCL world (mesh
+    (1, 1): the tensor-parallel code, its *f*/*g*, the vocab-parallel
+    loss and the gradient rule through NCCL collectives over one rank)
+    on RWKV-6 SMOKE, TF32 off in the rank: loss within 1e-5 (relative)
+    and params within 1e-5 of the single process's SGD step, B7 launched
+    in the rank twice a layer (forward and remat recompute)."""
+    import _lm_scale_out_ranks as ranks
+    from repro_torch.launch.world import spawn_world
+    from repro_torch.train import TrainState, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_smoke_config("rwkv6-3b").replace(dtype=torch.float32)
+    params, _ = get_family(cfg).init(torch.Generator().manual_seed(0), cfg)
+    weights = ranks.arrays(params)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (4, 32)),
+             "targets": rng.integers(0, cfg.vocab, (4, 32))}
+    (tp,) = spawn_world(ranks.card_step, 1, backend="nccl", cuda_index=0,
+                        args=(cfg, weights, [batch]), timeout=300)
+    opt = ranks.optimizer()
+    p = ranks.tensors(weights, cuda)
+    state = TrainState(p, opt.init(p))
+    new, metrics = make_train_step(cfg, opt)(
+        state, {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()})
+    want = float(metrics["loss"])
+    assert abs(tp["losses"][0] - want) <= 1e-5 * abs(want)
+    assert tp["shapes_agree"]
+    got = ranks.arrays(new["params"])
+    for a, w in zip(tree_leaves(tp["first"]), tree_leaves(got)):
+        assert np.abs(a - w).max() <= 1e-5
+    assert tp["b7"] == 2 * cfg.n_layers

@@ -563,9 +563,26 @@ def test_launcher_resumes_bit_exact(tmp_path):
 
 
 def test_launcher_refuses_model_parallel_and_a_missing_gpu():
-    with pytest.raises(SystemExit, match="A12"):
+    """``--model-parallel 2 --world 2`` trains under the plan (two gloo
+    ranks, the RWKV heads and the vocab split over them) and its losses
+    match ``--model-parallel 1``'s; each rank's leaves have the plan's
+    shard shapes.  A ``--model-parallel`` that does not divide
+    ``--world`` is refused, and so is a run with no GPU to default to."""
+    base = ["--arch", "rwkv6-3b", "--smoke", "--device", "cpu", "--steps",
+            "3", "--batch", "2", "--seq", "16"]
+    single = [h["loss"] for h in launch_train.main(base).history]
+    ranks = launch_train.main(base + ["--model-parallel", "2", "--world",
+                                      "2"])
+    assert len(ranks) == 2
+    for res in ranks:
+        assert res["step"] == 3
+        np.testing.assert_allclose([h["loss"] for h in res["history"]],
+                                   single, rtol=1e-5)
+        assert all(local == want for local, want in res["shapes"].values())
+        assert res["shapes"]["params/embed/table"][0] == (256, 64)
+    with pytest.raises(SystemExit, match="must divide --world"):
         launch_train.main(["--arch", "rwkv6-3b", "--smoke", "--device", "cpu",
-                           "--model-parallel", "2"])
+                           "--model-parallel", "2", "--world", "3"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             launch_train.main(["--arch", "rwkv6-3b", "--smoke", "--steps",
