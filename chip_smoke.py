@@ -125,8 +125,9 @@ no result:
    for bit;
 5i. the dense family (float32, random weights from a seed on the card,
    TF32 off): (a) Llama-3.2-1B (`configs/llama3_2_1b.py::CONFIG`, 16
-   layers, d_model 2048, GQA 32/8, vocab 128256, tied) at full width and
-   depth through `ServeEngine` (8 slots, max_len 512, chunk 64, the
+   layers, d_model 2048, GQA 32/8, vocab 128256, tied) at full width, 2
+   of its 16 layers (cut to make room for 5n), through
+   `ServeEngine` (8 slots, max_len 512, chunk 64, the
    masked decode scan) on phase 5c's 16 requests: every request
    completes, no kernel of the port launches; the first prefill tick's last-active
    logits from the scan against `transformer.forward` (flash) in float32
@@ -136,7 +137,7 @@ no result:
    differ at a near-tie (top-2 margin within the spread); the prefill
    and decode ticks warm beside the decode step's weight-read bound;
    (b) StableLM-2-1.6B at full width and depth (LayerNorm, full MHA) and
-   (c) Qwen3-32B (8 of 64 layers: qk-norm, head_dim 128) and Qwen2-72B (4
+   (c) Qwen3-32B (2 of 64 layers: qk-norm, head_dim 128) and Qwen2-72B (2
    of 80: QKV bias) at full width, 4 requests each, decode against
    forward as in (a), each model freed before the next; (d) ``python -m
    repro_torch.launch.serve --arch llama3.2-1b --mixed ...`` in a
@@ -144,8 +145,8 @@ no result:
 5j. the MoE and RG-LRU families (float32, random weights from a seed on
    the card, TF32 off): (a) Qwen3-30B-A3B (128 experts top-8, d_ff 768,
    qk-norm, 4 KV heads of 128) and (b) Mixtral-8x22B (8 experts top-2,
-   d_ff 16384, window 4096) at published widths, depth cut to 16 of 48
-   and 4 of 56 layers, phase 5c's first 4 requests each through
+   d_ff 16384, window 4096) at published widths, depth cut to 4 of 48
+   and 2 of 56 layers, phase 5c's first 4 requests each through
    `ServeEngine` as in 5i: every request completes, no kernel of the port
    launches; the first prefill tick's logits from the scan (decode groups
    of one token drop nothing) against the forward in float32 and in
@@ -218,21 +219,22 @@ no result:
    card (not a scaling figure);
 5m. scale-out of the LM path (two-rank gloo worlds on cuda:0, TF32 off
    in every rank; not a scaling figure): (a) tensor parallelism,
-   RWKV-6 3B at full width with 4 of 32 layers, mesh (1, 2), two AdamW
+   RWKV-6 3B at full width with 1 of 32 layers, mesh (1, 2), two AdamW
    steps at 8 x 128 through `launch/train.py`'s plan path: step 1's loss
    within 1e-5 (relative) of the single process's on the same weights,
    every reduced float32 gradient leaf within 1e-4 of its largest |g| of
    one process's that adds in the ranks' parts (`split_grads`), and so
    with the model in float64 of the single process's, each
    rank's leaves at the plan's shard shapes, the replicated leaves equal
-   bit for bit across ranks after both steps, B7 2 x 4 times a step a
-   rank at (8, 128, 20, 64), its first call held against the plain twin;
+   bit for bit across ranks after both steps, B7 twice a step a rank
+   (forward, remat recompute) at (8, 128, 20, 64), its first call held against the plain twin;
    (b) the same under FSDP, mesh (2, 1), 4 sequences a rank, B7 at (4,
    128, 40, 64); (c) expert parallelism, Qwen3-30B-A3B at full width
-   with 4 of 48 layers, mesh (1, 2), 64 experts a rank: the loss and aux
+   with 2 of 48 layers, mesh (1, 2), 64 experts a rank: the loss and aux
    of both ``moe_impl``s within 1e-5 (relative) of the single process's;
-   (d) split-KV decode, Llama-3.2-1B whole, mesh (1, 2) under
-   ``cache_seq_shard`` (a cache of 64, 32 a rank): phase 5c's first 4
+   (d) split-KV decode, Llama-3.2-1B at full width, 2 of 16 layers, mesh
+   (1, 2) under ``cache_seq_shard`` (a cache of 64, 32 a rank): phase
+   5c's first 4
    prompts cut to the shortest, 16 greedy tokens through
    `greedy_generate` under the plan equal to the single process's up to
    a near-tie, and every teacher-forced step's logits within 1e-5 of its
@@ -245,6 +247,28 @@ no result:
    tick of each rank; every world's memory and wall time printed; no
    kernel but B7 launches on the path; B7 timed at phase 9's shape
    before and after the worlds;
+5n. the rest of the LM path's scale-out (gloo worlds on cuda:0, TF32 off,
+   held in float64 against the single process within 1e-5 of each
+   leaf's largest |g| and of the largest |logit|, the single process's
+   gradients written under a temporary directory and read by each rank
+   in its slices; not a scaling figure): (a) RWKV-6 3B at full width, 1
+   of 32 layers, 16 ranks through `launch/train.py --world 16
+   --model-parallel 16` (2560 columns split, the 40 heads whole on every
+   rank), one AdamW step at 8 x 128, B7 on every rank at (8, 128, 40,
+   64), then step 1 in float64 under the plan; (b) Whisper-tiny whole,
+   TP 2, FSDP 2 and TP 4 (6 heads over 4), (c) RecurrentGemma-9B at full
+   width, its first block period, TP 2 (its FSDP 2 on the CPU only:
+   78 s of gloo traffic on the card), (d)
+   Llama-3.2-Vision-11B at full width, its first group, TP 2 on the P²M
+   frontend's tokens of 4 frames (B1/B2 once a rank, the parent's tuner
+   entries), gates nonzero: a train step's gradients and 16 decode steps
+   (teacher-forced; (d) 16 prompt + 16 greedy tokens) each; (e) sharded
+   checkpoints of RWKV-6 3B (2 of 32 layers, TP 2, `--ckpt-dir
+   --ckpt-every 2`): 2 steps, a save, a restore and step
+   3 equal an uninterrupted run's bit for bit, and the checkpoint
+   restored by an FSDP-2 plan and into one process equals the saved
+   tree bit for bit; (f) every world's state bytes equal the census's
+   (`launch/specs.py`, `launch/op_analysis.argument_bytes`);
 6. the training path: 6 steps of `make_vww_train_step` on `CONFIG` at
    batch 32 with the paper's `sgd(step_decay(...), momentum=0.9)`; every
    loss finite, each step launches B1 or B2 (as tuned), B3 and B4
@@ -286,7 +310,8 @@ no result:
     of B1/B2, B5 and B7 under ``launches_by_path["door"]``; the
     frontend's of B1/B2, B3 and B4 under ``"frontend"``, the scale-out
     worlds' ranks' under ``"scale_out"``, the LM scale-out's under
-    ``"lm_scale_out"`` (B7's; 0 for B1-B6); B7's
+    ``"lm_scale_out"`` (B7's; 0 for B1-B6), the rest of the scale-out's
+    under ``"scale_out_rest"`` (B1/B2 and B7; 0 for B3-B6); B7's
     ``"dense"``, ``"moe"``, ``"rglru"``, ``"vlm"`` and ``"encdec"``
     paths, each 0);
 11. the card's name and power limit as nvidia-smi gives them, then the
@@ -309,7 +334,9 @@ builds of ``p2m_conv.cu`` and ``p2m_bwd.cu`` and phase 5k alone
 same two builds and phase 5l alone (`scale_out_only`);
 ``python3 chip_smoke.py --lm-scale-out`` phase 1, the build of
 ``wkv.cu``, phase 5c (the single engines 5m (e) is held to) and phase
-5m alone (`lm_scale_out_only`).
+5m alone (`lm_scale_out_only`); ``python3 chip_smoke.py
+--scale-out-rest`` phase 1, the builds of ``p2m_conv.cu`` and ``wkv.cu``
+and phase 5n alone (`scale_out_rest_only`).
 """
 from __future__ import annotations
 
@@ -3338,8 +3365,9 @@ def door_path(torch, np, dev, lm, vision, stream_ref, smi):
 
 
 DENSE_ARCH = "llama3.2-1b"
+DENSE_LAYERS = 2  # (a): Llama-3.2-1B's depth cut, of 16 (room for 5n)
 # Phase 5i (c): published widths, depth cut to fit float32 in 80 GB.
-DENSE_CUT = (("qwen3-32b", 8), ("qwen2-72b", 4))
+DENSE_CUT = (("qwen3-32b", 2), ("qwen2-72b", 2))
 DENSE_REQUESTS = 4  # (b) and (c): the first four of phase 5c's prompts
 # Each of the float32 scan's and forward's first-prefill-tick logits
 # within this share of the largest |float64 logit| of the float64
@@ -3636,7 +3664,7 @@ def warm_ticks(dev, params, cfg, requests):
 
 def dense_path(torch, np, dev, smi):
     """Phase 5i: the dense family on the card, float32, TF32 off.  (a)
-    Llama-3.2-1B at full width and depth: phase 5c's 16 requests through
+    Llama-3.2-1B at full width, 2 of 16 layers: phase 5c's 16 requests through
     `ServeEngine` (masked decode scan), decode against forward, each
     request's tokens against its own `greedy_generate` run, and the
     prefill and decode ticks warm beside the decode step's weight-read
@@ -3654,8 +3682,10 @@ def dense_path(torch, np, dev, smi):
 
     out = {}
     # (a)
-    cfg = get_config(DENSE_ARCH).replace(dtype=torch.float32)
-    a = served_model(torch, np, dev, cfg, "(a)", LM_REQUESTS)
+    cfg = get_config(DENSE_ARCH).replace(dtype=torch.float32,
+                                         n_layers=DENSE_LAYERS)
+    a = served_model(torch, np, dev, cfg, "(a)", LM_REQUESTS,
+                     published=get_config(DENSE_ARCH).n_layers)
     rec, restore = greedy_margins(torch, engine_mod)
     margins = rec["margins"]
     same, t0 = 0, time.perf_counter()
@@ -3765,7 +3795,7 @@ def dense_only(torch, np, dev) -> int:
 
 # Phase 5j: the MoE family at published widths, depth cut to fit float32
 # in 80 GB beside the rest of the run; RecurrentGemma-9B whole.
-MOE_CUT = (("qwen3-moe-30b-a3b", 16), ("mixtral-8x22b", 4))
+MOE_CUT = (("qwen3-moe-30b-a3b", 4), ("mixtral-8x22b", 2))
 RGLRU_ARCH = "recurrentgemma-9b"
 RGLRU_ROWS = 4  # the first four of phase 5c's prompts, cut to the shortest
 MOE_RGLRU_LAUNCHERS = (  # (arguments, should it serve)
@@ -4910,8 +4940,9 @@ def tree_digest(tree) -> str:
     from repro_torch.tree import tree_leaves
 
     h = hashlib.sha256()
-    for t in tree_leaves(tree):
-        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    for t in tree_leaves(tree):  # each leaf's bytes, without a second copy
+        h.update(t.detach().cpu().contiguous().reshape(-1).numpy()
+                 .view("uint8"))
     return h.hexdigest()
 
 
@@ -5291,7 +5322,7 @@ def scale_out_only(torch, np, dev) -> int:
 # Phase 5m: the LM path's scale-out.  Worlds of two ranks share cuda:0
 # over gloo (NCCL refuses two ranks on one card, phase 5l (b)): no time
 # here is a scaling figure.
-LM_SO_LAYERS = 4  # (a), (b): RWKV-6 3B's depth cut, of 32
+LM_SO_LAYERS = 1  # (a), (b): RWKV-6 3B's depth cut, of 32 (room for 5n)
 LM_SO_ARGV = ["--arch", LM_ARCH, "--layers", str(LM_SO_LAYERS), "--steps",
               "2", "--batch", "8", "--seq", "128", "--world", "2",
               "--device", "cuda"]
@@ -5302,10 +5333,11 @@ LM_SO_LOSS_RTOL = 1e-5  # step 1's loss against the single process's
 # process.  Against the plain single process in float32 the ranks' other
 # order of sums moves a leaf by ~1e-2 at this depth (PERF.md §6).
 LM_SO_GRAD_TOL = 1e-4
-EP_ARCH, EP_LAYERS, EP_BATCH = "qwen3-moe-30b-a3b", 4, (4, 64)
+EP_ARCH, EP_LAYERS, EP_BATCH = "qwen3-moe-30b-a3b", 2, (4, 64)
 EP_RTOL = 1e-5  # (c): loss and aux against the single process's
 SPLIT_KV_PROMPTS, SPLIT_KV_NEW, SPLIT_KV_LEN = 4, 16, 64
 SPLIT_KV_TOL = 1e-5  # (d): of the single process's largest |logit|
+SPLIT_KV_LAYERS = 2  # (d): Llama-3.2-1B's depth cut, of 16 (room for 5n)
 LM_SO_TIMEOUT = 900.0
 
 
@@ -5585,7 +5617,7 @@ def ep_rank(rank, world, batch):
 
 
 def split_kv_rank(rank, world, prompts, single_logits):
-    """Phase 5m (d) in one rank: Llama-3.2-1B whole, mesh (1, world),
+    """Phase 5m (d) in one rank: Llama-3.2-1B, 2 of 16 layers, mesh (1, world),
     ``cache_seq_shard``: `greedy_generate` under the plan, then the
     prompts and the single process's tokens teacher-forced through the
     split-KV ``decode_step``, each step's logits against the single
@@ -5602,7 +5634,8 @@ def split_kv_rank(rank, world, prompts, single_logits):
     from repro_torch.serving import greedy_generate
 
     dev = _rank_card(torch)
-    cfg = get_config(DENSE_ARCH).replace(dtype=torch.float32)
+    cfg = get_config(DENSE_ARCH).replace(dtype=torch.float32,
+                                         n_layers=SPLIT_KV_LAYERS)
     mesh = make_debug_mesh(model=world, device=dev)
     plan = plan_for(mesh, cache_seq_shard=True)
     family = get_family(cfg)
@@ -5889,7 +5922,8 @@ def lm_scale_out_path(torch, np, dev, smi, lm):
         add(res["launches"])
 
     # (d) split-KV decode: the single process's greedy run and logits
-    dcfg = get_config(DENSE_ARCH).replace(dtype=torch.float32)
+    dcfg = get_config(DENSE_ARCH).replace(dtype=torch.float32,
+                                          n_layers=SPLIT_KV_LAYERS)
     lengths, requests = lm_traffic(np, dcfg.vocab, SPLIT_KV_PROMPTS)
     p = int(min(lengths))
     prompts = np.stack([np.asarray(r.prompt[:p], np.int64)
@@ -5918,7 +5952,8 @@ def lm_scale_out_path(torch, np, dev, smi, lm):
     top2 = np.sort(logits[:, p - 1:], axis=-1)[..., -2:]
     margins = {i: list(top2[i, :, 1] - top2[i, :, 0])
                for i in range(len(prompts))}
-    print(f"[5m] (d) split-KV: {DENSE_ARCH} whole, prompts {prompts.shape} "
+    print(f"[5m] (d) split-KV: {DENSE_ARCH} at full width, "
+          f"{SPLIT_KV_LAYERS} of 16 layers, prompts {prompts.shape} "
           f"(phase 5c's first {SPLIT_KV_PROMPTS}, cut to the shortest), "
           f"{SPLIT_KV_NEW} greedy tokens, cache of {SPLIT_KV_LEN} "
           f"({SPLIT_KV_LEN // 2} a rank); single process's largest |logit| "
@@ -6018,6 +6053,887 @@ def lm_scale_out_only(torch, np, dev) -> int:
     return 0
 
 
+# Phase 5n: the rest of the LM path's scale-out.  Worlds of gloo ranks
+# share cuda:0, as in 5m: no time here is a scaling figure.
+REST_TOL = 1e-5  # float64: of each leaf's / the logits' largest |value|
+REST_TIMEOUT = 1200.0
+REST_RWKV_ARGV = ["--arch", LM_ARCH, "--layers", "1", "--steps", "1",
+                  "--batch", "8", "--seq", "128", "--world", "16",
+                  "--model-parallel", "16", "--device", "cuda"]
+REST_CKPT_ARGV = ["--arch", LM_ARCH, "--layers", "2", "--batch", "8",
+                  "--seq", "128", "--world", "2", "--device", "cuda"]
+REST_ARCHS = ((WHISPER_ARCH, None), (RGLRU_ARCH, 3), (VLM_ARCH, 5))
+# (tag, arch, layers or None, ranks, model axis, fsdp, decode).  (c) runs
+# TP 2 alone here: its float64 FSDP step gathers and reduce-scatters 22 GB
+# through gloo (78 s on the card), more than the script's time limit
+# leaves; the CPU tests hold RG-LRU's FSDP step and decode
+REST_WORLDS = (  # each world runs its cases in this order, the two-rank
+    # world's largest (~35 GB a rank) first
+    ("(c) TP 2", RGLRU_ARCH, 3, 2, 2, False, True),
+    ("(d) TP 2", VLM_ARCH, 5, 2, 2, False, True),
+    ("(b) TP 2", WHISPER_ARCH, None, 2, 2, False, True),
+    ("(b) FSDP 2", WHISPER_ARCH, None, 2, 1, True, True),
+    ("(b) TP 4", WHISPER_ARCH, None, 16, 4, False, True),  # in (a)'s world
+)
+REST_ROWS = {WHISPER_ARCH: 4, RGLRU_ARCH: 2, VLM_ARCH: MM_FRAMES}
+REST_PROMPT = 16  # tokens teacher-forced before (d)'s greedy ones
+REST_NEW = 16  # decode steps: teacher-forced (b), (c); greedy (d)
+REST_SEQ = 32  # the train step's sequence
+
+
+def rest_config(torch, arch, layers=None):
+    """The world's config at full width in float64, depth cut."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).replace(dtype=torch.float64)
+    return cfg.replace(n_layers=layers) if layers else cfg
+
+
+def rest_weights(torch, dev, cfg, gates=True):
+    """The family's init on ``dev`` seeded ``SEED`` in float32 (the same
+    draw in every process), the VLM's gates nonzero as in 5k."""
+    from repro_torch.models.families import get_family
+
+    params, _ = get_family(cfg).init(
+        torch.Generator(dev).manual_seed(SEED),
+        cfg.replace(dtype=torch.float32))
+    if cfg.family == "vlm" and gates:
+        gen = torch.Generator(dev).manual_seed(SEED + 5)
+        for gate in ("gate_attn", "gate_mlp"):
+            params["cross"][gate] = 0.5 + 0.5 * torch.rand(
+                params["cross"][gate].shape, generator=gen, device=dev)
+    return params
+
+
+def rest_frontend(torch, dev, tune_entries=None):
+    """4 SyntheticVWW frames through the deploy-folded P²M frontend
+    (B1 or B2 as tuned; with ``tune_entries`` the parent's decisions, so
+    a rank times nothing): (B, 784, 4096) float32 tokens."""
+    from repro_torch.core import bn_fold, frontend
+    from repro_torch.core import p2m_conv as core
+    from repro_torch.data import SyntheticVWW
+    from repro_torch.kernels.p2m_conv import tune
+
+    if tune_entries is not None:
+        tune.load_cache_entries(tune_entries)
+    fcfg = frontend.P2MFrontendConfig()
+    fparams = frontend.init_p2m_frontend(torch.Generator().manual_seed(SEED),
+                                         fcfg, device=dev)
+    fstate = frontend.init_p2m_frontend_state(fcfg, device=dev)
+    deploy = core.premix_deploy(bn_fold.deploy_params(
+        fparams["conv"], fstate["conv"], fcfg.conv), fcfg.conv)
+    frames = torch.from_numpy(SyntheticVWW(
+        image_size=fcfg.image_size, batch=MM_FRAMES, seed=SEED
+    ).batch_at(0)["images"]).to(dev)
+    with torch.no_grad():
+        emb, _ = frontend.apply_p2m_frontend(fparams, fstate, frames, fcfg,
+                                             deploy=deploy)
+    return emb
+
+
+def rest_inputs(torch, np, dev, cfg, rows, emb=None):
+    """The world's batch (train step) and decode rows, made from the seed
+    on ``dev``: {"batch": ..., "seq": (rows, the decode's) tokens,
+    "embeds": the rows' source or image embeddings}."""
+    rng = np.random.default_rng(SEED + 31)
+    tok = rng.integers(0, cfg.vocab, (rows, REST_SEQ))
+    tgt = rng.integers(0, cfg.vocab, (rows, REST_SEQ))
+    batch = {"tokens": torch.from_numpy(tok).to(dev),
+             "targets": torch.from_numpy(tgt).to(dev)}
+    embeds = None
+    if cfg.family == "encdec":
+        embeds = torch.from_numpy(rng.normal(
+            0, 1, (rows, cfg.max_source_positions, cfg.d_model))).to(dev)
+        batch["src_embeds"] = embeds
+    if cfg.family == "vlm":
+        embeds = emb.double()
+        batch["image_embeds"] = embeds
+    steps = REST_PROMPT + REST_NEW if cfg.family == "vlm" else REST_NEW
+    return {"batch": batch, "embeds": embeds,
+            "seq": batch["tokens"][:, :steps]}
+
+
+def rest_grads(torch, cfg, params, batch, plan=None):
+    """(loss, gradient tree) of the family's loss; under ``plan`` on this
+    rank's parts, the gradients reduced by the train step's rule and the
+    loss the shares' sum."""
+    from repro_torch.models.families import get_family
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel import use_plan
+    from repro_torch.parallel.sharding_utils import param_shardings
+    from repro_torch.train.step import reduce_gradients
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    live = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    if plan is None:
+        loss, _ = get_family(cfg).loss(tree_unflatten(params, live), batch,
+                                       cfg)
+        return float(loss), tree_unflatten(
+            params, list(torch.autograd.grad(loss, live)))
+    with use_plan(plan):
+        loss, _ = get_family(cfg).loss(tree_unflatten(params, live), batch,
+                                       cfg)
+        grads = tree_unflatten(params, list(torch.autograd.grad(loss, live)))
+        grads = reduce_gradients(grads, param_shardings(cfg, plan), plan)
+        loss = col.all_reduce_sum(loss.detach(), col.axis_groups(
+            plan.mesh, col.batch_axes(plan)))
+    return float(loss), grads
+
+
+def rest_decode(torch, cfg, params, seq, embeds, plan=None):
+    """Teacher-forced decode of ``seq`` (B, T): each step's logits (B, T,
+    V) whole (under ``plan`` the ranks' vocab columns and rows gathered),
+    the cross K/V prefilled from ``embeds`` for vlm and encdec."""
+    from repro_torch.models import vlm, whisper
+    from repro_torch.models.families import get_family
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel import use_plan
+    from repro_torch.parallel.sharding_utils import (
+        batch_shardings,
+        local_tree,
+        shardings_for,
+    )
+
+    family = get_family(cfg)
+    b, t = seq.shape
+    state, axes = family.init_decode_state(cfg, b, t, device=seq.device)
+    kw, rows = {}, seq
+    if plan is not None:
+        kw["cache_shardings"] = shardings_for(state, axes, plan)
+        state = local_tree(state, kw["cache_shardings"])
+        rows = local_tree(seq, batch_shardings(seq, plan))
+        embeds = None if embeds is None else local_tree(
+            embeds, batch_shardings(embeds, plan))
+    out = []
+    with use_plan(plan), torch.no_grad():
+        if cfg.family in ("vlm", "encdec"):
+            mod = vlm if cfg.family == "vlm" else whisper
+            state["cross"] = mod.prefill_cross_kv(params, embeds, cfg)
+        for i in range(t):
+            lg, state = family.decode(
+                params, state, rows[:, i:i + 1],
+                torch.full((rows.shape[0],), i, device=seq.device), cfg,
+                **kw)
+            if plan is not None:
+                lg = col.gather_from_model(
+                    lg, col.axis_groups(plan.mesh, ("model",)), -1)
+                lg = col.all_gather_batch(lg, col.axis_groups(
+                    plan.mesh, col.batch_axes(plan, b)))
+            out.append(lg[:, 0])
+    return torch.stack(out, 1)
+
+
+def rest_forward(torch, cfg, params, seq, embeds):
+    """The single process's float64 forward logits of ``seq``."""
+    from repro_torch.models import rglru, vlm, whisper
+
+    with torch.no_grad():
+        if cfg.family == "encdec":
+            return whisper.forward(params, embeds, seq, cfg)[0]
+        if cfg.family == "vlm":
+            return vlm.forward(params, seq, embeds, cfg)[0]
+        return rglru.forward(params, seq, cfg)[0]
+
+
+def save_reference(np, grads, directory) -> dict:
+    """Each float64 gradient leaf to ``directory/<path>.npy`` (the ranks
+    read their slices of it by memory map) rounded to float32, whose
+    6e-8 of a value is far inside ``REST_TOL`` and halves the bytes to
+    write; each leaf's largest |g|, from the float64 values."""
+    from repro_torch.common.pytree import flatten_with_names
+
+    scales = {}
+    for name, g in flatten_with_names(grads):
+        scales[name] = float(g.detach().abs().max())
+        np.save(f"{directory}/{name}.npy", g.detach().float().cpu().numpy())
+    return scales
+
+
+def reference_errors(np, grads, shardings, directory, scales):
+    """(the worst leaf's error of its whole largest |g|, its name, the
+    leaves compared): this rank's parts of the reduced gradients against
+    its slices of the single process's (`save_reference`)."""
+    from repro_torch.common.pytree import flatten_with_names
+
+    import torch
+
+    split = dict(flatten_with_names(shardings))
+    errs = {}
+    for name, g in flatten_with_names(grads):
+        want = split[name].local(np.load(f"{directory}/{name}.npy",
+                                         mmap_mode="r"))
+        # on the rank's device: the host holds one slice at a time
+        want = torch.from_numpy(np.ascontiguousarray(want)).to(
+            g.device, g.dtype)
+        errs[name] = float((g.detach() - want).abs().max()
+                           / max(scales[name], 1e-300))
+        del want
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst, len(errs)
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if hasattr(t, "numel"))
+
+
+def census_bytes(cfg, plan, batch: int, seq: int, kind: str) -> int:
+    """The census's per-rank argument bytes of the state under ``plan``
+    (`launch/specs.py` builders, `op_analysis.argument_bytes`): params
+    and AdamW's moments for a train state, the params alone else."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.op_analysis import argument_bytes
+    from repro_torch.launch.specs import build_prefill_cell, build_train_cell
+
+    spec = ShapeSpec(kind, kind, seq, batch)
+    if kind == "train":
+        _, (state, _), (state_sh, _) = build_train_cell(cfg, spec, plan)
+        return argument_bytes(state, state_sh)
+    _, (params, _), (params_sh, _) = build_prefill_cell(cfg, spec, plan)
+    return argument_bytes(params, params_sh)
+
+
+def _rest_card(torch, device):
+    if device == "cuda":
+        return _rank_card(torch)
+    return torch.device(device)
+
+
+def rest_rwkv_rank(rank, world, argv, ref_dir, scales, cases, device):
+    """5n (a) in one rank: `launch/train.py`'s plan path for one AdamW step
+    at a model axis of ``world`` (RWKV-6 3B's 40 heads whole on every
+    rank, its 2560 columns split), with B7's calls recorded; the rank's
+    state bytes beside the census's; then step 1 with the model in
+    float64 (WKV and GroupNorm float32, through B7) under the plan,
+    against the single process's gradients (``ref_dir``)."""
+    import torch
+
+    from repro_torch.kernels.rwkv_wkv import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.parallel import plan_for
+    from repro_torch.parallel.sharding_utils import local_tree, param_shardings
+    from repro_torch.tree import tree_map
+
+    dev = _rest_card(torch, device)
+    args = launch_train._parse(argv)
+    cfg = launch_train.launch_config(args)
+    plan = plan_for(make_debug_mesh(model=args.model_parallel, device=dev),
+                    fsdp=args.fsdp)
+    shapes, fused = [], ops.wkv_fused
+
+    def watched(r, k, v, lw, u, st, *, chunk):
+        shapes.append(tuple(r.shape))
+        return fused(r, k, v, lw, u, st, chunk=chunk)
+
+    ops.wkv_fused = watched
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer, leaf_shapes = launch_train._train(args, dev, plan)
+    finally:
+        ops.wkv_fused = fused
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    state = {k: v for k, v in trainer.state.items() if k in ("params", "opt")}
+    out = {"seconds": time.perf_counter() - t0, "launches": kernel_counts(),
+           "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                       if dev.type == "cuda" else 0.0),
+           "losses": [h["loss"] for h in trainer.history],
+           "shapes_agree": all(a == b for a, b in leaf_shapes.values()),
+           "b7_shapes": sorted(set(shapes)), "b7_calls": len(shapes),
+           "state_bytes": tree_bytes(state),
+           "census_bytes": census_bytes(cfg, plan, args.batch, args.seq,
+                                        "train")}
+    del trainer, state
+    sh = param_shardings(cfg, plan)
+    weights = rest_weights(torch, dev, cfg)
+    local = tree_map(lambda t: t.double(), local_tree(weights, sh))
+    del weights
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    from repro_torch.parallel.sharding_utils import batch_shardings
+
+    batch = lm_batch(torch, dev, cfg.vocab)
+    batch = local_tree(batch, batch_shardings(batch, plan))
+    out["f64_loss"], grads = rest_grads(
+        torch, cfg.replace(dtype=torch.float64), local, batch, plan)
+    import numpy as np
+
+    out["grad_err"], out["grad_worst"], out["n_leaves"] = reference_errors(
+        np, grads, sh, ref_dir, scales)
+    del grads, local, batch
+    rest_free(torch, dev)
+    out["cases"] = [rest_case(rank, case, dev) for case in cases]
+    return out
+
+
+def rest_case(rank, case, dev):
+    """5n (b)-(d), one case in one rank: the case's plan, the rank's parts
+    of the weights (float32 bytes beside the census's, then float64), the
+    VLM's image tokens from the frontend on the rank's card (B1/B2
+    counted), one train step's reduced float64 gradients against the
+    single process's (``case["ref_dir"]``) and the teacher-forced decode's
+    logits (returned by rank 0)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.parallel import plan_for
+    from repro_torch.parallel.sharding_utils import (
+        batch_shardings,
+        local_tree,
+        param_shardings,
+    )
+    from repro_torch.tree import tree_map
+
+    cfg = rest_config(torch, case["arch"], case["layers"])
+    plan = plan_for(make_debug_mesh(model=case["model"], device=dev),
+                    fsdp=case["fsdp"])
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    emb = None
+    if cfg.family == "vlm":
+        emb = rest_frontend(torch, dev, case["tune"])
+    front = kernel_counts()
+    c32 = cfg.replace(dtype=torch.float32)
+    sh = param_shardings(cfg, plan)
+    weights = rest_weights(torch, dev, cfg)
+    local32 = local_tree(weights, param_shardings(c32, plan))
+    out = {"state_bytes": tree_bytes(local32),
+           "census_bytes": census_bytes(c32, plan, REST_ROWS[case["arch"]],
+                                        REST_SEQ, "prefill")}
+    params = tree_map(lambda t: t.double(), local32)
+    del weights, local32
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    inputs = rest_inputs(torch, np, dev, cfg, REST_ROWS[case["arch"]], emb)
+    batch = local_tree(inputs["batch"], batch_shardings(inputs["batch"],
+                                                         plan))
+    out["loss"], grads = rest_grads(torch, cfg, params, batch, plan)
+    out["grad_err"], out["grad_worst"], out["n_leaves"] = reference_errors(
+        np, grads, sh, case["ref_dir"], case["scales"])
+    del grads
+    out["logits"] = None
+    if case["decode"]:
+        logits = rest_decode(torch, cfg, params,
+                             torch.from_numpy(case["seq"]).to(dev),
+                             inputs["embeds"], plan)
+        out["logits"] = logits.cpu().numpy() if rank == 0 else None
+    out["launches"] = kernel_counts()
+    out["frontend"] = front
+    out["seconds"] = time.perf_counter() - t0
+    out["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                      if dev.type == "cuda" else 0.0)
+    out["host_gb"] = host_available_gb()
+    return out
+
+
+def host_available_gb() -> float:
+    """The machine's available host memory (`MemAvailable`), GB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+def rest_train(argv, dev, compared=True):
+    """5n (e): `launch/train.py`'s plan path for ``argv`` with its
+    checkpoints (every rank saves, rank 0 writes; a restore gives each
+    rank its part by the current plan), B7 counted; where ``compared``,
+    the state's digest, bytes and the census's."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.parallel import plan_for
+
+    args = launch_train._parse(argv)
+    cfg = launch_train.launch_config(args)
+    plan = plan_for(make_debug_mesh(model=args.model_parallel, device=dev),
+                    fsdp=args.fsdp)
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    trainer, _ = launch_train._train(args, dev, plan)
+    out = {"seconds": time.perf_counter() - t0, "launches": kernel_counts(),
+           "losses": [h["loss"] for h in trainer.history],
+           "step": int(trainer.state["step"])}
+    if compared:
+        state = {k: v for k, v in trainer.state.items()
+                 if k in ("params", "opt")}
+        out.update(digest=tree_digest(state), state_bytes=tree_bytes(state),
+                   census_bytes=census_bytes(cfg, plan, args.batch, args.seq,
+                                             "train"))
+    return out
+
+
+def npz_views(path):
+    """Each array of an uncompressed ``.npz`` (`np.savez`'s) by name, as
+    a read-only memory map of its bytes in the archive: a check reads
+    only the slices it compares, and no array is copied whole."""
+    import struct
+    import zipfile
+
+    import numpy as np
+
+    fmt = np.lib.format
+    views = {}
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
+        for info in zf.infolist():
+            check(info.compress_type == zipfile.ZIP_STORED,
+                  f"{path}: {info.filename} is compressed")
+            f.seek(info.header_offset)
+            local = f.read(30)  # the member's local header, then its name
+            n_name, n_extra = struct.unpack("<HH", local[26:30])
+            f.seek(info.header_offset + 30 + n_name + n_extra)
+            major, _ = fmt.read_magic(f)
+            shape, fortran, dtype = (fmt.read_array_header_1_0(f)
+                                     if major == 1 else
+                                     fmt.read_array_header_2_0(f))
+            name = info.filename.removesuffix(".npy")
+            if not shape:  # a scalar: np.memmap takes no empty shape
+                views[name] = np.frombuffer(f.read(dtype.itemsize),
+                                            dtype)[0]
+                continue
+            views[name] = np.memmap(path, dtype, "r", offset=f.tell(),
+                                    shape=shape,
+                                    order="F" if fortran else "C")
+    return views
+
+
+def rest_restore(argv, ckpt_dir, dev):
+    """5n (e): the checkpoint in ``ckpt_dir`` restored by ``argv``'s plan,
+    each rank's parts against its slices of the saved global arrays, bit
+    for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.common.pytree import flatten_with_names
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.families import get_family
+    from repro_torch.parallel import plan_for
+
+    args = launch_train._parse(argv)
+    cfg = launch_train.launch_config(args)
+    plan = plan_for(make_debug_mesh(model=args.model_parallel, device=dev),
+                    fsdp=args.fsdp)
+    params, axes = get_family(cfg).init(torch.Generator(dev).manual_seed(1),
+                                        cfg)
+    opt = launch_train.adamw(launch_train.cosine_warmup(1e-3, 1, 2))
+    local, _, sh = launch_train._local_state(params, axes, opt, plan)
+    del params
+    t0 = time.perf_counter()
+    state, _ = CheckpointManager(ckpt_dir).restore_latest(local, shardings=sh)
+    seconds = time.perf_counter() - t0
+    steps = CheckpointManager(ckpt_dir).steps()
+    split = dict(flatten_with_names(sh))
+    same = n = 0
+    saved = npz_views(f"{ckpt_dir}/step_{steps[-1]}/arrays.npz")
+    for name, leaf in flatten_with_names(state):  # a leaf at a time
+        if name == "step":
+            continue
+        n += 1
+        same += bool(np.array_equal(leaf.cpu().numpy(),
+                                    split[name].local(saved[name])))
+    del saved
+    return {"step": int(state["step"]), "same": same, "leaves": n,
+            "seconds": seconds}
+
+
+def rest_free(torch, dev):
+    """The card's cached blocks and the pinned host buffers gloo stages
+    CUDA tensors through (the host allocator keeps them, and the
+    machine's host memory is shared by every rank and file)."""
+    import gc
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        empty_host = (getattr(torch._C, "_host_emptyCache", None)
+                      or getattr(torch._C, "_accelerator_emptyHostCache",
+                                 None))
+        if empty_host is not None:
+            empty_host()
+
+
+def rest_world_rank(rank, world, cases, ckpt_dir, device):
+    """One rank of a 5n world: each of ``cases`` in turn (`rest_case`,
+    memory freed between them), then, with ``ckpt_dir``, (e): an
+    uninterrupted 3-step TP-2 run, 2 steps and a save, a restore and step
+    3, and the checkpoint restored by an FSDP-2 plan."""
+    import torch
+
+    dev = _rest_card(torch, device)
+
+    def free():
+        rest_free(torch, dev)
+
+    import shutil
+
+    import torch.distributed as dist
+
+    def drop(path):
+        """Remove ``path`` once every rank is done with it: the machine's
+        files and processes share its host memory."""
+        dist.barrier()
+        if rank == 0:
+            shutil.rmtree(path, ignore_errors=True)
+
+    out = {"cases": []}
+    for case in cases:
+        out["cases"].append(rest_case(rank, case, dev))
+        free()
+        if case["drop_ref"]:
+            drop(case["ref_dir"])
+    if ckpt_dir is None:
+        return out
+    tp = REST_CKPT_ARGV + ["--model-parallel", "2", "--ckpt-every", "2"]
+    ck = tp + ["--ckpt-dir", ckpt_dir]
+    for key, argv in (("whole", tp + ["--steps", "3"]),
+                      ("first", ck + ["--steps", "2"]),
+                      ("second", ck + ["--steps", "1"])):
+        out[key] = rest_train(argv, dev, compared=key != "first")
+        free()
+    drop(f"{ckpt_dir}/step_2")  # the restores read the latest, step 3
+    out["restored"] = rest_restore(
+        REST_CKPT_ARGV + ["--model-parallel", "1", "--fsdp"], ckpt_dir, dev)
+    return out
+
+
+def scale_out_rest_path(torch, np, dev, smi):
+    """Phase 5n: (a) RWKV-6 3B at a model axis of 16, (b) Whisper-tiny,
+    (c) RecurrentGemma-9B, (d) Llama-3.2-Vision-11B fed by the P²M
+    frontend, each tensor- or fully-sharded against the single process in
+    float64, (e) sharded checkpoints across layouts, (f) the census's
+    per-rank bytes against each world's.  Returns every kernel's
+    launches on the path (the ranks' sums) and the worlds' walls."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels.p2m_conv import tune
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.world import spawn_world
+    from repro_torch.tree import tree_leaves, tree_map
+
+    device = dev.type
+    launches = {name: 0 for name in kernel_counts()}
+    walls = {}
+    # the ranks' allocator maps what it needs (two ranks' float64 checks
+    # of RecurrentGemma's 256000-row tables, ~35 GB a rank, share one card
+    # with room to spare only without the caching allocator's split
+    # blocks)
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+
+    def spawn(tag, fn, n, args):
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            print(f"[5n] {tag}: the parent holds "
+                  f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card; "
+                  f"the host has {host_available_gb():.1f} GB available")
+        t0 = time.perf_counter()
+        res = spawn_world(fn, n, backend="gloo", args=(*args, device),
+                          cuda_index=0 if device == "cuda" else None,
+                          timeout=REST_TIMEOUT)
+        walls[tag] = time.perf_counter() - t0
+        return res
+
+    def add(counts):
+        for name, k in counts.items():
+            launches[name] += k
+
+    def census_line(tag, rank, res):
+        print(f"[5n] (f) {tag} rank {rank}: the rank's state "
+              f"{res['state_bytes']} bytes, the census's argument bytes "
+              f"{res['census_bytes']} for the same arch, shape and mesh")
+        check(res["state_bytes"] == res["census_bytes"], f"5n (f) {tag} "
+              f"rank {rank}: state {res['state_bytes']} bytes, census "
+              f"{res['census_bytes']}")
+
+    # the single process's references of (b)-(d), written under ``root``;
+    # then the (a) world, which also runs (b)'s TP-4 case, one world of
+    # two ranks for every two-rank case and the checkpoints
+    root = tempfile.mkdtemp(prefix="rest-")
+    refs, tune_entries = {}, [None]
+
+    def reference(arch, layers):
+        """The single process's float64 loss, decode logits and (written
+        under ``root``) gradients of ``arch``, for the worlds' cases."""
+        cfg = rest_config(torch, arch, layers)
+        emb = None
+        if cfg.family == "vlm":
+            reset_kernel_counts()
+            emb = rest_frontend(torch, dev)
+            tune_entries[0] = tune.cache_entries()
+            reset_kernel_counts()
+        t0 = time.perf_counter()
+        weights = tree_map(lambda t: t.double(), rest_weights(torch, dev, cfg))
+        inputs = rest_inputs(torch, np, dev, cfg, REST_ROWS[arch], emb)
+        seq = inputs["seq"]
+        if cfg.family == "vlm":  # greedy tokens after the prompt
+            seq = seq.clone()
+            for i in range(REST_PROMPT, seq.shape[1]):
+                lg = rest_forward(torch, cfg, weights, seq[:, :i],
+                                  inputs["embeds"])
+                seq[:, i] = lg[:, -1].argmax(-1)
+        want = rest_forward(torch, cfg, weights, seq, inputs["embeds"])
+        loss, grads = rest_grads(torch, cfg, weights, inputs["batch"])
+        n_params = sum(t.numel() for t in tree_leaves(weights))
+        del weights, inputs, emb
+        t1 = time.perf_counter()
+        ref = f"{root}/{arch}"
+        os.mkdir(ref)
+        scales = save_reference(np, grads, ref)
+        del grads
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        refs[arch] = {"cfg": cfg, "loss": loss, "want": want.cpu().numpy(),
+                      "seq": seq.cpu().numpy(), "ref_dir": ref,
+                      "scales": scales}
+        print(f"[5n] reference {cfg.name}: full width, {cfg.n_layers} layers, "
+              f"{n_params} parameters, float64 single process: loss "
+              f"{loss:.9f}, {seq.shape[1]} decode positions; "
+              f"{t1 - t0:.2f} s on the card, {time.perf_counter() - t1:.2f} s "
+              f"to write its gradients ({4 * n_params / 1e9:.2f} GB)")
+        del want
+
+    def world_cases(n):
+        return [{"tag": tag, "arch": arch, "layers": layers, "model": model,
+                 "fsdp": fsdp, "decode": decode, "tune": tune_entries[0],
+                 "ref_dir": refs[arch]["ref_dir"],
+                 "scales": refs[arch]["scales"], "seq": refs[arch]["seq"]}
+                for tag, arch, layers, ranks_n, model, fsdp, decode
+                in REST_WORLDS if ranks_n == n]
+
+    try:
+        # (a) RWKV-6 3B, 1 of 32 layers, model axis 16
+        args = launch_train._parse(REST_RWKV_ARGV)
+        cfg = launch_train.launch_config(args)
+        c64 = cfg.replace(dtype=torch.float64)
+        heads, world = cfg.n_rwkv_heads, args.world
+        want_shape = (args.batch, args.seq, heads, cfg.rwkv_head_dim)
+        reference(WHISPER_ARCH, None)
+        cases = {world: world_cases(world)}
+        ref = f"{root}/a"
+        os.mkdir(ref)
+        weights = tree_map(lambda t: t.double(), rest_weights(torch, dev, cfg))
+        loss64, grads = rest_grads(torch, c64, weights,
+                                   lm_batch(torch, dev, cfg.vocab))
+        del weights
+        scales = save_reference(np, grads, ref)
+        del grads
+        print(f"[5n] (a) RWKV-6 3B at full width, {cfg.n_layers} of 32 layers "
+              f"({cfg.param_count_estimate() / 1e9:.2f} B params by the "
+              f"reference's count), model axis {world}: {cfg.d_model} "
+              f"columns split ({cfg.d_model // world} a rank), {heads} heads "
+              f"whole (every rank runs them); single process float64 loss "
+              f"{loss64:.9f}")
+        for case in cases[world]:  # its reference serves the later world
+            case["drop_ref"] = False
+        ranks = spawn("(a) TP 16", rest_rwkv_rank, world,
+                      (REST_RWKV_ARGV, ref, scales, cases[world]))
+        shutil.rmtree(ref)
+        for rank, res in enumerate(ranks):
+            err = abs(res["f64_loss"] - loss64) / abs(loss64)
+            check(err <= REST_TOL and res["grad_err"] <= REST_TOL,
+                  f"5n (a) rank {rank}: loss {err}, gradient {res['grad_worst']} "
+                  f"{res['grad_err']}")
+            check(res["b7_shapes"] == [want_shape] and res["b7_calls"] > 0
+                  and res["launches"]["wkv_fused"] == res["b7_calls"],
+                  f"5n (a) rank {rank}: B7 {res['b7_calls']} calls at "
+                  f"{res['b7_shapes']}, {res['launches']['wkv_fused']} launches")
+            check(res["shapes_agree"] and all(np.isfinite(res["losses"])),
+                  f"5n (a) rank {rank}: shapes {res['shapes_agree']}, losses "
+                  f"{res['losses']}")
+            check(res["losses"] == ranks[0]["losses"], f"5n (a) rank {rank}: "
+                  f"losses {res['losses']} vs rank 0's {ranks[0]['losses']}")
+            census_line("(a)", rank, res)
+            add(res["launches"])
+        res = ranks[0]
+        print(f"[5n] (a) every rank: B7 at {res['b7_shapes']} (all {heads} "
+              f"heads), {res['b7_calls']} calls in the AdamW step (forward and "
+              f"remat recompute); loss {res['losses']}; float64 loss vs the "
+              f"single process {abs(res['f64_loss'] - loss64) / abs(loss64):.3e}"
+              f", {res['n_leaves']} gradient leaves, worst "
+              f"{max(r['grad_err'] for r in ranks):.3e} of its largest |g| "
+              f"({res['grad_worst']}; limit {REST_TOL}); rank 0's peak "
+              f"{res['peak_gb']:.2f} GB, step {res['seconds']:.2f} s; world "
+              f"wall {walls['(a) TP 16']:.2f} s, {smi}, {world} ranks sharing "
+              f"one card over gloo (not a scaling figure)")
+
+        # (b)-(e)
+        for arch, layers in REST_ARCHS:
+            if arch not in refs:
+                reference(arch, layers)
+        cases[2] = world_cases(2)
+        order = cases[2]
+        for i, case in enumerate(order):
+            case["drop_ref"] = all(c["arch"] != case["arch"]
+                                   for c in order[i + 1:])
+        ckpt = f"{root}/ckpt"
+        pair = spawn("(b)-(e) two ranks", rest_world_rank, 2,
+                     (cases[2], ckpt))
+        results = [(case, [r["cases"][i] for r in pair])
+                   for i, case in enumerate(cases[2])]
+        results += [(case, [r["cases"][i] for r in ranks])
+                    for i, case in enumerate(cases[world])]
+        for case, ranks in results:
+            tag, ref = case["tag"], refs[case["arch"]]
+            cfg, loss, want = ref["cfg"], ref["loss"], ref["want"]
+            logits = ranks[0]["logits"]
+            decoded = "no decode"
+            if case["decode"]:
+                scale = float(np.abs(want).max())
+                logit_err = float(np.abs(logits - want).max()) / scale
+                same = int((logits.argmax(-1) == want.argmax(-1)).sum())
+                check(logit_err <= REST_TOL, f"5n {tag}: decode logits "
+                      f"{logit_err} of the largest")
+                kind = ("teacher-forced" if cfg.family != "vlm" else
+                        f"{REST_PROMPT} prompt + {REST_NEW} greedy")
+                decoded = (f"{logits.shape[1]} decode steps ({kind}) logits "
+                           f"{logit_err:.3e} of the largest |float64 forward "
+                           f"logit|, {same} of "
+                           f"{logits.shape[0] * logits.shape[1]} argmax equal")
+            for rank, res in enumerate(ranks):
+                err = abs(res["loss"] - loss) / abs(loss)
+                check(err <= REST_TOL and res["grad_err"] <= REST_TOL,
+                      f"5n {tag} rank {rank}: loss {err}, gradient "
+                      f"{res['grad_worst']} {res['grad_err']}")
+                census_line(tag, rank, res)
+                add(res["launches"])
+                b12 = (res["frontend"]["p2m_conv_fused"]
+                       + res["frontend"]["p2m_conv_fused_pipelined"])
+                check(b12 == (1 if cfg.family == "vlm" else 0),
+                      f"5n {tag} rank {rank}: the frontend launched B1/B2 "
+                      f"{b12} times")
+                others = {k: v for k, v in res["launches"].items()
+                          if k not in ("p2m_conv_fused",
+                                       "p2m_conv_fused_pipelined") and v}
+                check(not others, f"5n {tag} rank {rank}: launched {others}")
+            print(f"[5n] {tag}: {cfg.name}, mesh ({len(ranks) // case['model']}"
+                  f", {case['model']}): every rank's float64 loss within "
+                  f"{max(abs(r['loss'] - loss) / abs(loss) for r in ranks):.3e}"
+                  f" (relative), {ranks[0]['n_leaves']} gradient leaves, worst "
+                  f"{max(r['grad_err'] for r in ranks):.3e} of its largest |g| "
+                  f"({ranks[0]['grad_worst']}; limit {REST_TOL}); {decoded}; "
+                  f"B1/B2 {ranks[0]['frontend']['p2m_conv_fused']} + "
+                  f"{ranks[0]['frontend']['p2m_conv_fused_pipelined']} a rank"
+                  f"; rank 0 {ranks[0]['seconds']:.2f} s, peak "
+                  f"{ranks[0]['peak_gb']:.2f} GB, the host's available "
+                  f"memory after it {ranks[0]['host_gb']:.1f} GB; {smi}")
+
+        # (e) sharded checkpoints: RWKV-6 3B, 2 of 32 layers, TP 2
+        for rank, res in enumerate(pair):
+            a, b = res["whole"], res["second"]
+            check(b["step"] == 3 and a["digest"] == b["digest"]
+                  and a["losses"][-1] == b["losses"][-1],
+                  f"5n (e) rank {rank}: resumed step {b['step']}, loss "
+                  f"{b['losses']} vs {a['losses']}")
+            census_line("(e) 3 steps", rank, a)
+            census_line("(e) resumed", rank, b)
+            for key in ("whole", "first", "second"):
+                check(res[key]["launches"]["wkv_fused"] > 0, f"5n (e) rank "
+                      f"{rank}: B7 never launched in the {key} run")
+                add(res[key]["launches"])
+            r = res["restored"]
+            check(r["step"] == 3 and r["same"] == r["leaves"],
+                  f"5n (e) FSDP rank {rank}: {r['same']} of {r['leaves']} "
+                  f"leaves equal the saved ones")
+        first = pair[0]
+        print(f"[5n] (e) TP 2: 2 steps and a save, then a restore and step "
+              f"3: its loss {first['second']['losses']} and every rank's "
+              f"state (sha256 {first['second']['digest'][:16]}...) equal an "
+              f"uninterrupted 3-step run's bit for bit; B7 "
+              f"{[r['whole']['launches']['wkv_fused'] for r in pair]} a rank "
+              f"in the 3 steps; runs {first['whole']['seconds']:.2f}, "
+              f"{first['first']['seconds']:.2f}, "
+              f"{first['second']['seconds']:.2f} s (rank 0, host clock)")
+        # and into one process
+        from repro_torch.checkpoint import CheckpointManager
+        from repro_torch.common.pytree import flatten_with_names
+        from repro_torch.models.families import get_family
+        from repro_torch.train import TrainState
+
+        cfg = launch_train.launch_config(launch_train._parse(REST_CKPT_ARGV))
+        params, _ = get_family(cfg).init(torch.Generator(dev).manual_seed(1),
+                                         cfg)
+        opt = launch_train.adamw(launch_train.cosine_warmup(1e-3, 1, 2))
+        t0 = time.perf_counter()
+        state, _ = CheckpointManager(ckpt).restore_latest(
+            TrainState(params, opt.init(params)))
+        one_s = time.perf_counter() - t0
+        del params
+        saved = npz_views(f"{ckpt}/step_3/arrays.npz")
+        names = [k for k in saved if k != "step"]
+        same = sum(bool(np.array_equal(leaf.cpu().numpy(), saved[name]))
+                   for name, leaf in flatten_with_names(state)
+                   if name != "step")  # a leaf at a time
+        del saved
+        n_leaves = len(names)
+        check(state["step"] == 3 and same == n_leaves, f"5n (e) one process: "
+              f"{same} of {n_leaves} leaves equal the saved ones")
+        gb = tree_bytes({k: v for k, v in state.items() if k != "step"}) / 1e9
+        del state
+        print(f"[5n] (e) the step-3 checkpoint ({gb:.2f} GB) restored into "
+              f"an FSDP-2 plan ({pair[0]['restored']['same']} and "
+              f"{pair[1]['restored']['same']} of "
+              f"{pair[0]['restored']['leaves']} leaves a rank equal the "
+              f"saved slices bit for bit, {pair[0]['restored']['seconds']:.2f}"
+              f" s) and into one process ({same} of {n_leaves} leaves equal, "
+              f"{one_s:.2f} s)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    others = {k: v for k, v in launches.items()
+              if k not in ("p2m_conv_fused", "p2m_conv_fused_pipelined",
+                           "wkv_fused")}
+    check(not any(others.values()), f"5n: a kernel besides B1/B2 and B7 "
+          f"launched: {others}")
+    print(f"[5n] kernel launches on the path (every rank): {launches}; "
+          f"world walls {walls}")
+    if alloc is None:
+        os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+    else:
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    return {"launches": launches, "walls": walls}
+
+
+def scale_out_rest_only(torch, np, dev) -> int:
+    """``chip_smoke.py --scale-out-rest``: phase 1, the builds of
+    ``p2m_conv.cu`` and ``wkv.cu`` and phase 5n alone."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.p2m_conv import conv
+    from repro_torch.kernels.rwkv_wkv import kernel as wkv_kernel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = smi_line()
+    print(f"[1] card: {smi}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
+    with ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(conv.build_p2m_conv),
+                    pool.submit(wkv_kernel.build_wkv)]:
+            job.result()
+    for name in ("p2m_conv", "wkv"):
+        print(f"[2] {name}.cu: nvcc {_build.BUILD_INFO[name][0]:.2f} s")
+    t0 = time.perf_counter()
+    print(json.dumps(scale_out_rest_path(torch, np, dev, smi)))
+    print(f"[5n] {time.perf_counter() - t0:.1f} s")
+    print(smi)
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -6038,6 +6954,8 @@ def main() -> int:
         return scale_out_only(torch, np, torch.device("cuda"))
     if sys.argv[1:] == ["--lm-scale-out"]:
         return lm_scale_out_only(torch, np, torch.device("cuda"))
+    if sys.argv[1:] == ["--scale-out-rest"]:
+        return scale_out_rest_only(torch, np, torch.device("cuda"))
     if sys.argv[1:] == ["--b4"]:
         return b4_only(torch, np, torch.device("cuda"))
     if sys.argv[1:] == ["--b1b6"]:
@@ -6076,6 +6994,12 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    started = time.perf_counter()
+
+    def stamp(phase):
+        """How far into the run a phase ended (host clock)."""
+        print(f"[t] {phase} done at {time.perf_counter() - started:.1f} s")
 
     # ------------------------------------------------------- phase 1
     smi = smi_line()
@@ -6168,6 +7092,7 @@ def main() -> int:
             paper_err = max(paper_err, raw_err)
         print(line)
 
+    stamp("3")
     gated_err = check_gated_kernel(torch, np, dev,
                                    paper_imgs[:4].contiguous(), wrows, shift,
                                    rand_case, adc)
@@ -6183,6 +7108,7 @@ def main() -> int:
         "training": (TRAIN_BATCH, *sig, "raw")})
     mm_err = check_matmul_kernel(torch, np, dev, adc)
 
+    stamp("3b-3g")
     # ------------------------------------------------------- phase 4
     bwd_err, bwd = check_backward_kernels(torch, np, dev)
 
@@ -6248,20 +7174,28 @@ def main() -> int:
     pass_launches = engine_b2_pass(torch, np, dev, params, bn,
                                    vision_requests, tuned["serving"]["key"])
 
+    stamp("4-5e")
     stream = stream_path(torch, np, dev, params, bn)
+    stamp("5b")
 
     lm = lm_path(torch, np, dev,
                  get_config(LM_ARCH).replace(dtype=torch.float32))
+    stamp("5c")
     door = door_path(
         torch, np, dev, lm,
         {"params": params, "bn": bn, "images": images,
          "probs": vision_probs},
         {r.uid: r.frame_outputs for r in stream["gated"].completed}, smi)
+    stamp("5h")
     check_faults(torch, np, dev)
     lm_train = lm_train_path(torch, np, dev, lm)
+    stamp("5f-5g")
     dense = dense_path(torch, np, dev, smi)
+    stamp("5i")
     moe_rglru = moe_rglru_path(torch, np, dev, smi)
+    stamp("5j")
     multimodal = multimodal_path(torch, np, dev, smi)
+    stamp("5k")
 
     # ------------------------------------------------------- phase 6
     train = train_path(torch, np, dev)
@@ -6271,6 +7205,7 @@ def main() -> int:
 
     # ------------------------------------------------------- phase 8
     fold_and_serve(torch, np, dev, train)
+    stamp("6-8")
 
     # ------------------------------------------------------- phase 9
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
@@ -6373,8 +7308,18 @@ def main() -> int:
     del flush
     # The multi-process phases come after the timings: a B7 read after
     # 5m's worlds took 1.19x the one before them (PERF.md §6).
+    stamp("9")
     scale_out = scale_out_path(torch, np, dev, smi)
+    stamp("5l")
     lm_scale_out = lm_scale_out_path(torch, np, dev, smi, lm)
+    stamp("5m")
+    # 5n needs the card: keep the counts the kernel line reads, free the
+    # served LM and the door's engines
+    door_counts = {name: door_launches(door, name) for name in door["counts"]}
+    lm_launches = lm["launches"]
+    del door, lm
+    rest = scale_out_rest_path(torch, np, dev, smi)["launches"]
+    stamp("5n")
 
     # ------------------------------------------------------- phase 10
     # B1 and B2 run, as the tuner picks, on the serving run, the training
@@ -6388,10 +7333,11 @@ def main() -> int:
                                           else "B2"][name],
             "train": train["launches"][name],
             "stream": stream["where_launches"][name],
-            "door": door_launches(door, name),
+            "door": door_counts[name],
             "frontend": multimodal["launches"][name],
             "scale_out": scale_out["launches"][name],
-            "lm_scale_out": lm_scale_out["launches"][name]}
+            "lm_scale_out": lm_scale_out["launches"][name],
+            "scale_out_rest": rest[name]}
         check(sum(stem_paths[name].values()) > 0,
               f"{name} launched no time on the main paths")
     kernels = [{
@@ -6430,22 +7376,24 @@ def main() -> int:
             "launches": (train["launches"][name]
                          + multimodal["launches"][name]
                          + scale_out["launches"][name]
-                         + lm_scale_out["launches"][name]),
+                         + lm_scale_out["launches"][name] + rest[name]),
             "launches_by_path": {"train": train["launches"][name],
                                  "frontend": multimodal["launches"][name],
                                  "scale_out": scale_out["launches"][name],
                                  "lm_scale_out":
-                                     lm_scale_out["launches"][name]},
+                                     lm_scale_out["launches"][name],
+                                 "scale_out_rest": rest[name]},
             "max_abs_err": bwd_err[name],
             **bwd_rows[name],
         })
     b5_stream = sum(stream["launches"][name]
                     for name in gated_launches(gated))
-    b5_door = sum(door_launches(door, name)
+    b5_door = sum(door_counts[name]
                   for name in gated_launches(gated))
     b5_lm_so = sum(lm_scale_out["launches"][name]
                    for name in gated_launches(gated))
-    b5 = b5_stream + b5_door + b5_lm_so
+    b5_rest = sum(rest[name] for name in gated_launches(gated))
+    b5 = b5_stream + b5_door + b5_lm_so + b5_rest
     check(b5_stream > 0 and b5_door > 0,
           "p2m_conv_fused_gated launched no time on a main path")
     kernels.append({
@@ -6459,9 +7407,10 @@ def main() -> int:
         "launches": b5,
         "launches_pipelined":
             stream["launches"]["p2m_conv_fused_gated_pipelined"]
-            + door_launches(door, "p2m_conv_fused_gated_pipelined"),
+            + door_counts["p2m_conv_fused_gated_pipelined"],
         "launches_by_path": {"stream": b5_stream, "door": b5_door,
-                             "lm_scale_out": b5_lm_so},
+                             "lm_scale_out": b5_lm_so,
+                             "scale_out_rest": b5_rest},
         "max_abs_err": gated_err,
         **gated_row,
     })
@@ -6471,10 +7420,12 @@ def main() -> int:
         "source": "src/repro_torch/kernels/p2m_conv/csrc/p2m_matmul.cu",
         "replaces": "src/repro/kernels/p2m_conv/kernel.py:159",
         # the patch-level path of phase 5d
-        "launches": mm_launches + lm_scale_out["launches"]["p2m_matmul_fused"],
+        "launches": (mm_launches + lm_scale_out["launches"]["p2m_matmul_fused"]
+                     + rest["p2m_matmul_fused"]),
         "launches_by_path": {
             "patches": mm_launches,
-            "lm_scale_out": lm_scale_out["launches"]["p2m_matmul_fused"]},
+            "lm_scale_out": lm_scale_out["launches"]["p2m_matmul_fused"],
+            "scale_out_rest": rest["p2m_matmul_fused"]},
         "max_abs_err": mm_err,
         **mm_row,
     })
@@ -6490,14 +7441,15 @@ def main() -> int:
         # engines' prefill ticks on a rank's slots, phase 5m); none on the
         # dense path (5i), the MoE path or the RG-LRU path (5j), the VLM
         # or Whisper (5k)
-        "launches": (lm["launches"] + door_launches(door, "wkv_fused")
+        "launches": (lm_launches + door_counts["wkv_fused"]
                      + lm_train["launches"] + dense["b7"]
                      + sum(moe_rglru["b7"].values())
                      + multimodal["vlm"]["b7"]
                      + multimodal["encdec"]["b7"]
-                     + lm_scale_out["launches"]["wkv_fused"]),
-        "launches_by_path": {"lm": lm["launches"],
-                             "door": door_launches(door, "wkv_fused"),
+                     + lm_scale_out["launches"]["wkv_fused"]
+                     + rest["wkv_fused"]),
+        "launches_by_path": {"lm": lm_launches,
+                             "door": door_counts["wkv_fused"],
                              "lm_train": lm_train["launches"],
                              "dense": dense["b7"],
                              "moe": sum(moe_rglru["b7"][name]
@@ -6506,7 +7458,8 @@ def main() -> int:
                              "vlm": multimodal["vlm"]["b7"],
                              "encdec": multimodal["encdec"]["b7"],
                              "lm_scale_out":
-                                 lm_scale_out["launches"]["wkv_fused"]},
+                                 lm_scale_out["launches"]["wkv_fused"],
+                             "scale_out_rest": rest["wkv_fused"]},
         "max_abs_err": wkv_err,
         **wkv_row,
     })
@@ -6519,6 +7472,13 @@ def main() -> int:
           and all(k["launches_by_path"]["lm_scale_out"] == 0
                   for k in kernels[:-1]),
           "the LM scale-out path launched B7 no time, or another kernel")
+    check(b7_paths["scale_out_rest"] > 0
+          and sum(k["launches_by_path"]["scale_out_rest"]
+                  for k in kernels[:2]) > 0
+          and all(k["launches_by_path"]["scale_out_rest"] == 0
+                  for k in kernels[2:-1]),
+          "the rest of the scale-out launched B7 or B1/B2 no time, or "
+          "another kernel")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

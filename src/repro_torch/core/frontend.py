@@ -14,6 +14,14 @@ folded, 8-bit quantized kernel the tuner picks (B1 or B2's ring) for a
 CUDA tensor; in the train form B1/B2 forward and the closed-form B3/B4
 backward through `ops.P2MConvFunction`.  ``proj`` is a plain product,
 as the reference computes it outside any kernel.
+
+Under the VLM's plan (`parallel.plan_for`) the frontend runs as it is on
+each rank's images: the frames split over the batch axes like the
+tokens and are replicated over ``"model"``, each rank's stem runs B1 or
+B2 on its own frames, and ``proj`` stays whole on every rank (its 128 ×
+4096 floats replicated, not column-split), so the tokens it gives are
+the rank's rows of ``image_embeds``, which the VLM's cross blocks take
+replicated over the model axis.
 """
 from __future__ import annotations
 

@@ -11,8 +11,8 @@ those shardings: called on a rank with its parts of the values
 (`sharding_utils.local_tree` of the whole ones by the shardings), it
 enters the plan itself, so the train step's gradients, the forward and
 the decode (split-KV under ``cache_seq_shard``) are the sharded ones of
-`train/step.py` and `models/` (the rglru, vlm and encdec families raise
-under a plan with a model axis or FSDP: ROADMAP A12c).
+`train/step.py` and `models/`, for every family.  `launch/dryrun.py`
+runs them on ``meta`` tensors as one rank of a fake world.
 """
 from __future__ import annotations
 
@@ -167,8 +167,7 @@ def build_decode_cell(cfg: ModelConfig, spec: ShapeSpec, plan: ShardingPlan):
     inputs, input_axes = input_specs(cfg, spec)
 
     state_sh = shardings_for(state, state_axes, plan)
-    kw = ({"cache_shardings": state_sh} if cfg.family in ("dense", "moe")
-          else {})
+    kw = {"cache_shardings": state_sh} if cfg.family != "rwkv" else {}
 
     def serve_step(params, state, tokens, pos):
         return family.decode(params, state, tokens, pos, cfg, **kw)

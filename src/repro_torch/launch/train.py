@@ -21,10 +21,12 @@ of the state (`sharding_utils.local_tree`) and of each batch, and runs
 the train step under the plan: tensor- and expert-parallel over
 ``--model-parallel`` ranks (which must divide N), data-parallel over the
 rest.  ``main`` then returns each rank's summary (its losses, and its
-leaves' shapes beside the plan's ``shard_shape``).  The rglru, vlm and
-encdec families train under a pure data plan only (``--model-parallel
-1``, no ``--fsdp``), and ``--ckpt-dir`` under a world raises: sharded
-checkpoints are ROADMAP A12c.
+leaves' shapes beside the plan's ``shard_shape``).  Every family trains
+so.  ``--ckpt-dir`` under a world writes sharded checkpoints: each
+leaf's global tensor gathered from the ranks' parts, rank 0 writing the
+same files a single process writes; a restore gives each rank its part
+by the current plan, so a checkpoint of one layout resumes in another
+(`checkpoint.manager`).
 """
 from __future__ import annotations
 
@@ -89,9 +91,6 @@ def _parse(argv):
             args.world % args.model_parallel:
         raise SystemExit(f"--model-parallel {args.model_parallel} must "
                          f"divide --world {args.world}")
-    if args.world > 1 and args.ckpt_dir:
-        raise SystemExit("--ckpt-dir under a world of ranks: sharded "
-                         "checkpoints are not ported yet (ROADMAP A12c)")
     return args
 
 
@@ -125,15 +124,13 @@ def _train(args, device, plan=None) -> tuple[Trainer, dict]:
 
     optimizer = adamw(cosine_warmup(args.lr, warmup=20, total=args.steps))
     params, axes = family.init(torch.Generator(device).manual_seed(0), cfg)
-    extras = None
-    if args.grad_compression == "int8_ef":
-        # the accumulator from the start, so every checkpoint has it
-        extras = {"ef_error": tree_map(
-            lambda p: torch.zeros_like(p, dtype=torch.float32), params)}
-    state = TrainState(params, optimizer.init(params), extras=extras)
-    shapes = {}
-    if plan is not None:
-        state, shapes = _local_state(state, axes, plan)
+    int8_ef = args.grad_compression == "int8_ef"
+    shapes = shardings = None
+    if plan is None:
+        state = _state(params, optimizer, int8_ef)
+    else:
+        state, shapes, shardings = _local_state(params, axes, optimizer, plan,
+                                                int8_ef)
     del params  # under a plan the whole tree goes: the rank keeps its part
     step = make_train_step(cfg, optimizer, accum_steps=args.accum,
                            grad_compression=args.grad_compression)
@@ -144,16 +141,18 @@ def _train(args, device, plan=None) -> tuple[Trainer, dict]:
 
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     trainer = Trainer(step, state, pipeline, ckpt_manager=ckpt,
-                      ckpt_every=args.ckpt_every if ckpt else 0)
+                      ckpt_every=args.ckpt_every if ckpt else 0,
+                      shardings=shardings)
     try:
-        if ckpt is not None and trainer.restore():
+        if ckpt is not None and trainer.restore() and (
+                plan is None or plan.mesh.get_rank() == 0):
             print(f"resumed from step {trainer.state['step']}")
         final = trainer.run(args.steps)
     finally:
         pipeline.close()
     if plan is None or plan.mesh.get_rank() == 0:
         print(f"final: {final}")
-    return trainer, shapes
+    return trainer, shapes or {}
 
 
 def _under(plan, step, use_plan):
@@ -163,21 +162,35 @@ def _under(plan, step, use_plan):
     return run
 
 
-def _local_state(state: dict, param_axes, plan) -> tuple[dict, dict]:
-    """This rank's part of ``state`` as ``shardings_for(state,
-    state_logical_axes(...), plan)`` places it, and each leaf's (local
-    shape, the sharding's ``shard_shape`` of the global one)."""
+def _state(params, optimizer, int8_ef: bool = False) -> dict:
+    """The train state of ``params``: the optimizer's, and with
+    ``int8_ef`` the error-feedback accumulator from the start, so every
+    checkpoint has it."""
+    extras = None
+    if int8_ef:
+        extras = {"ef_error": tree_map(
+            lambda p: torch.zeros_like(p, dtype=torch.float32), params)}
+    return TrainState(params, optimizer.init(params), extras=extras)
+
+
+def _local_state(params, param_axes, optimizer, plan,
+                 int8_ef: bool = False) -> tuple[dict, dict, dict]:
+    """This rank's train state under ``plan`` from the whole ``params``:
+    its part of them as ``shardings_for(state, state_logical_axes(...),
+    plan)`` places them, and the optimizer's state (and EF's) made on
+    that part, so no rank holds a whole moment; each leaf's (local shape,
+    the sharding's ``shard_shape`` of the global one); the shardings."""
     from repro_torch.parallel.sharding_utils import local_tree, shardings_for
     from repro_torch.train.state import state_logical_axes
 
-    axes = state_logical_axes(param_axes, state["opt"])
-    if "extras" in state:
+    whole = _state(tree_map(lambda t: torch.empty_like(t, device="meta"),
+                            params), optimizer, int8_ef)
+    axes = state_logical_axes(param_axes, whole["opt"])
+    if int8_ef:
         axes["extras"] = {"ef_error": param_axes}
-    sh = shardings_for(state, axes, plan)
-    local = tree_map(lambda t: t.clone(), local_tree(
-        {k: v for k, v in state.items() if k != "step"},
-        {k: v for k, v in sh.items() if k != "step"}))
-    local["step"] = state["step"]
+    sh = shardings_for(whole, axes, plan)
+    local = _state(tree_map(torch.clone, local_tree(params, sh["params"])),
+                   optimizer, int8_ef)
     shapes = {}
 
     def walk(value, part, s, path):
@@ -188,9 +201,9 @@ def _local_state(state: dict, param_axes, plan) -> tuple[dict, dict]:
             shapes[path] = (tuple(part.shape), s.shard_shape(value.shape))
 
     for key in ("params", "opt", "extras"):
-        if key in state:
-            walk(state[key], local[key], sh[key], key)
-    return local, shapes
+        if key in whole:
+            walk(whole[key], local[key], sh[key], key)
+    return local, shapes, sh
 
 
 def _world_rank(rank: int, world: int, argv) -> dict:

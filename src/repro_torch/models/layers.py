@@ -166,13 +166,6 @@ def _project_qkv(p: dict, x, cfg: ModelConfig, positions, *, rope: bool = True):
     return q, k, v
 
 
-def _local_heads(cfg: ModelConfig, ax) -> int:
-    if cfg.n_heads % ax.size:
-        raise ValueError(f"{cfg.n_heads} query heads do not split over a "
-                         f"model axis of {ax.size}: the plan splits a head")
-    return cfg.n_heads // ax.size
-
-
 def _tp_columns(p: dict, xf, sh, name: str, bias: str, ax):
     """``xf @ p[name]`` (+ bias): the rank's columns where the plan splits
     the leaf over the model axis, all of them where it leaves it whole
@@ -206,19 +199,32 @@ def _kv_for_heads(t, split: bool, cfg: ModelConfig, ax, hl: int):
 
 
 def _tp_qkv(p: dict, x, cfg: ModelConfig, positions, sh, ax, *,
-            rope: bool = True):
-    """q, k, v of this rank's query heads, (B, S, H/m, hd) each (k and v
-    repeated to the query heads), from the replicated ``x``."""
+            rope: bool = True, xkv=None):
+    """q, k, v (B, S, h, hd) from the replicated ``x`` (k and v from
+    ``xkv`` where given: a cross-attention's source), k and v repeated to
+    the query heads.  Where the query heads divide over the model axis,
+    ``h`` is this rank's H/m heads; where they do not (6 heads over 4
+    ranks, whose 384 columns divide), every rank gathers the columns of
+    q, k and v for use and runs every head (``h`` = H): `_tp_out` then
+    takes the rank's columns of the output into ``wo``'s rows."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    hl = _local_heads(cfg, ax)
     xf = col.copy_to_model(x, ax.groups)
+    xkf = xf if xkv is None else col.copy_to_model(xkv, ax.groups)
+    every = cfg.n_heads % ax.size != 0
     q = (xf @ p["wq"] + p["bq"] if "bq" in p else xf @ p["wq"])
+    if every:
+        q = col.gather_for_use(q, ax.groups, -1)
+    hl = cfg.n_heads if every else cfg.n_heads // ax.size
     q = q.reshape(b, s, hl, hd)
-    k, ks = _tp_columns(p, xf, sh, "wk", "bk", ax)
-    v, vs = _tp_columns(p, xf, sh, "wv", "bv", ax)
-    k = _kv_for_heads(k, ks, cfg, ax, hl)
-    v = _kv_for_heads(v, vs, cfg, ax, hl)
+    k, ks = _tp_columns(p, xkf, sh, "wk", "bk", ax)
+    v, vs = _tp_columns(p, xkf, sh, "wv", "bv", ax)
+    if every:
+        k, v = (gqa_repeat(_gathered_heads(t, split, cfg, ax), hl)
+                for t, split in ((k, ks), (v, vs)))
+    else:
+        k = _kv_for_heads(k, ks, cfg, ax, hl)
+        v = _kv_for_heads(v, vs, cfg, ax, hl)
     if "q_norm" in p:
         q = rms_norm(q, col.copy_to_model(p["q_norm"], ax.groups),
                      cfg.norm_eps)
@@ -230,25 +236,111 @@ def _tp_qkv(p: dict, x, cfg: ModelConfig, positions, sh, ax, *,
     return q, k, v
 
 
+def _gathered_heads(t, split: bool, cfg: ModelConfig, ax):
+    """Every KV head, (B, S, K, hd), from the rank's columns ``t`` (all
+    of them where the leaf is whole), gathered for use."""
+    if split:
+        t = col.gather_for_use(t, ax.groups, -1)
+    return t.reshape(t.shape[0], t.shape[1], cfg.n_kv_heads,
+                     cfg.resolved_head_dim)
+
+
+def _tp_out(out, p: dict, ax):
+    """The heads' output (B, S, C) through the row-parallel ``wo``: the
+    rank's rows of it, its columns of ``out`` where ``out`` holds every
+    head, and the parts added (*g*)."""
+    rows = p["wo"].shape[0]
+    if out.shape[-1] != rows:
+        out = out[..., ax.index * rows:(ax.index + 1) * rows]
+    return col.reduce_from_model(out @ p["wo"], ax.groups)
+
+
 def attention_block(p: dict, x, positions, cfg: ModelConfig, *,
-                    window: int | None = None, impl: str = "flash", sh=None):
-    """Full-sequence causal self-attention (training / prefill).  With
-    ``sh`` splitting the heads: this rank's query heads, its share of
-    ``wo``'s rows, and one `reduce_from_model`."""
+                    window: int | None = None, impl: str = "flash", sh=None,
+                    causal: bool = True, rope: bool = True):
+    """Full-sequence self-attention (training / prefill), causal unless
+    ``causal=False`` (an encoder's).  With ``sh`` splitting the heads'
+    columns: this rank's query heads (every head where they do not
+    divide, `_tp_qkv`), its share of ``wo``'s rows, and one
+    `reduce_from_model`."""
     b, s, _ = x.shape
     ax = _tp_axis(sh, "wq")
     if ax is not None:
-        q, k, v = _tp_qkv(p, x, cfg, positions, sh, ax)
-        out = attend(q, k, v, positions, positions, causal=True,
+        q, k, v = _tp_qkv(p, x, cfg, positions, sh, ax, rope=rope)
+        out = attend(q, k, v, positions, positions, causal=causal,
                      window=window, impl=impl)
-        out = out.reshape(b, s, -1) @ p["wo"]
-        return col.reduce_from_model(out, ax.groups)
-    q, k, v = _project_qkv(p, x, cfg, positions)
+        return _tp_out(out.reshape(b, s, -1), p, ax)
+    q, k, v = _project_qkv(p, x, cfg, positions, rope=rope)
     k = gqa_repeat(k, cfg.n_heads)
     v = gqa_repeat(v, cfg.n_heads)
-    out = attend(q, k, v, positions, positions, causal=True, window=window,
+    out = attend(q, k, v, positions, positions, causal=causal, window=window,
                  impl=impl)
     return out.reshape(b, s, cfg.q_dim) @ p["wo"]
+
+
+def cross_attention(p: dict, x, cfg: ModelConfig, *, src=None, kv=None,
+                    sh=None, kv_sh=None):
+    """Unmasked attention of ``x`` (B, S, d) to the K/V projected from
+    ``src`` (B, N, d) by ``wk``/``wv`` (no RoPE), or to ``kv`` = (k, v)
+    (B, N, K, hd) given (a decode cache's cross K/V), through ``wo``.
+
+    Under a plan (``sh``: the layer's param shardings; ``kv_sh``: the
+    given K/V's sharding, one layer's) every argument is this rank's
+    part: from ``src`` the heads run tensor-parallel as in
+    `attention_block`; against a given cache whose heads split over the
+    model axis, the rank's query heads attend to its KV heads, else
+    every head to the whole cache, and ``wo``'s rows add the parts."""
+    b, s, _ = x.shape
+    qpos = torch.zeros((b, s), dtype=torch.int32, device=x.device)
+    hd = cfg.resolved_head_dim
+    if kv is None:
+        kpos = torch.zeros((b, src.shape[1]), dtype=torch.int32,
+                           device=x.device)
+        ax = _tp_axis(sh, "wq")
+        if ax is not None:
+            q, k, v = _tp_qkv(p, x, cfg, None, sh, ax, rope=False, xkv=src)
+            out = dense_attention(q, k, v, qpos, kpos, causal=False)
+            return _tp_out(out.reshape(b, s, -1), p, ax)
+        n = src.shape[1]
+        k = (src @ p["wk"]).reshape(b, n, cfg.n_kv_heads, hd)
+        v = (src @ p["wv"]).reshape(b, n, cfg.n_kv_heads, hd)
+    else:
+        k, v = kv
+        kpos = torch.zeros((b, k.shape[1]), dtype=torch.int32,
+                           device=x.device)
+        if sh is not None:
+            ax = col.model_axis(kv_sh.mesh)
+            q = _whole_heads(p, x, sh, "wq", "bq", ax).reshape(
+                b, s, cfg.n_heads, hd)
+            hl, start = cfg.n_heads, 0
+            if col.leaf_axes(kv_sh)[2]:  # the rank's KV heads
+                hl = cfg.n_heads * k.shape[2] // cfg.n_kv_heads
+                start = ax.index * hl
+                q = q[:, :, start:start + hl]
+            out = dense_attention(q, gqa_repeat(k, hl), gqa_repeat(v, hl),
+                                  qpos, kpos, causal=False)
+            return _rows_out(out.reshape(b, s, hl * hd), p, sh, ax,
+                             start * hd)
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
+    out = dense_attention(q, gqa_repeat(k, cfg.n_heads),
+                          gqa_repeat(v, cfg.n_heads), qpos, kpos,
+                          causal=False)
+    return out.reshape(b, s, cfg.q_dim) @ p["wo"]
+
+
+def cross_kv(p: dict, src, cfg: ModelConfig, *, sh=None):
+    """A cross layer's K/V of ``src`` (B, N, d), (B, N, K, hd) each, for
+    a decode cache; under a plan this rank's part of them as the cache's
+    ``cache_heads`` rule places it: its KV heads where they divide over
+    the model axis, else every head (the ranks' columns gathered)."""
+    b, n, _ = src.shape
+    hd = cfg.resolved_head_dim
+    ax = _tp_axis(sh, "wk")
+    k, v = src @ p["wk"], src @ p["wv"]
+    if ax is not None and cfg.n_kv_heads % ax.size:
+        k = col.gather_from_model(k, ax.groups, -1)
+        v = col.gather_from_model(v, ax.groups, -1)
+    return k.reshape(b, n, -1, hd), v.reshape(b, n, -1, hd)
 
 
 # ------------------------------------------------------------------ KV cache
@@ -281,24 +373,34 @@ def cached_attention(p: dict, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
     Under a plan (``sh``: the layer's param shardings, ``cache_sh``: the
     cache leaf's of one layer) every argument is this rank's part.  A
     cache whose heads split over the model axis (``cache_heads``) holds
-    the rank's KV heads: the code below runs on the rank's query heads
-    (column-parallel) and ``wo``'s rows, and one `reduce_from_model`
-    adds the parts.  Otherwise `_split_kv_attention`.
+    the rank's KV heads: every head's q, k and v are projected (the
+    ranks' columns gathered where the plan splits them), the rank keeps
+    its KV heads and the query heads that read them, attends, and
+    ``wo``'s rows for those heads add the parts (`_rows_out`), whether
+    the plan splits the query heads over the model axis or keeps them
+    whole.  Otherwise `_split_kv_attention`.
     """
-    ax = None
-    if sh is not None:
+    b = x.shape[0]
+    t = cache_k.shape[1]
+    ax = start = None
+    if sh is None:
+        q, k, v = _project_qkv(p, x, cfg, pos[:, None], rope=rope)
+    else:
         head_axes = col.leaf_axes(cache_sh)[2]
         if not head_axes:
             return _split_kv_attention(p, x, cache_k, cache_v, pos, cfg, sh,
                                        cache_sh, window=window, rope=rope)
-        ax = _tp_axis(sh, "wq")
-        if head_axes != ("model",) or ax is None:
+        if head_axes != ("model",):
             raise ValueError(f"a decode cache whose heads split over "
-                             f"{head_axes} needs the query heads split over "
-                             "the model axis too")
-    b = x.shape[0]
-    t = cache_k.shape[1]
-    q, k, v = _project_qkv(p, x, cfg, pos[:, None], rope=rope)
+                             f"{head_axes}: only the model axis is supported")
+        ax = col.model_axis(cache_sh.mesh)
+        q, k, v = _decode_qkv(p, x, cfg, pos, sh, ax, rope=rope)
+        kl = cache_k.shape[2]
+        hl = cfg.n_heads * kl // cfg.n_kv_heads
+        start = ax.index * hl
+        q = q[:, :, start:start + hl]
+        k = k[:, :, ax.index * kl:(ax.index + 1) * kl]
+        v = v[:, :, ax.index * kl:(ax.index + 1) * kl]
     slot = torch.remainder(pos, t)
     rows = torch.arange(b, device=x.device)
     new_k = cache_k.index_put((rows, slot), k[:, 0].to(cache_k.dtype))
@@ -315,10 +417,49 @@ def cached_attention(p: dict, x, cache_k, cache_v, pos, cfg: ModelConfig, *,
     vr = gqa_repeat(new_v, heads)
     out = dense_attention(q, kr, vr, pos[:, None], kv_pos, causal=True,
                           window=window)
-    out = out.reshape(b, 1, -1) @ p["wo"]
-    if ax is not None:
-        out = col.reduce_from_model(out, ax.groups)
-    return out, new_k, new_v
+    out = out.reshape(b, 1, -1)
+    if sh is None:
+        return out @ p["wo"], new_k, new_v
+    return (_rows_out(out, p, sh, ax, start * cfg.resolved_head_dim),
+            new_k, new_v)
+
+
+def _rows_out(out, p: dict, sh, ax, start: int):
+    """Decode's heads output ``out`` (B, 1, C), columns ``[start, start +
+    C)`` of every head's, through ``wo``: the rows this rank holds of it
+    (its split rows, or the slice of the whole leaf those columns meet),
+    the ranks' parts added where each rank had a part.  Outside
+    autograd."""
+    wo, n = p["wo"], out.shape[-1]
+    if ax is None:
+        return out @ wo
+    if col.model_dim(sh["wo"]) is not None:  # the rank's rows of wo
+        rows = wo.shape[0]
+        first = ax.index * rows
+        out = out[..., first - start:first - start + rows]
+    elif n == wo.shape[0]:  # every head, a whole wo: every rank alike
+        return out @ wo
+    else:
+        wo = wo[start:start + n]
+    return col.reduce_from_model(out @ wo, ax.groups)
+
+
+def _decode_qkv(p: dict, x, cfg: ModelConfig, pos, sh, ax, *, rope: bool):
+    """Every head's q, k, v of decode's one token, (B, 1, ·, hd)."""
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    q = _whole_heads(p, x, sh, "wq", "bq", ax).reshape(b, 1, cfg.n_heads, hd)
+    k = _whole_heads(p, x, sh, "wk", "bk", ax).reshape(
+        b, 1, cfg.n_kv_heads, hd)
+    v = _whole_heads(p, x, sh, "wv", "bv", ax).reshape(
+        b, 1, cfg.n_kv_heads, hd)
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if rope:
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    return q, k, v
 
 
 def _whole_heads(p: dict, x, sh, name: str, bias: str, ax):
@@ -340,25 +481,15 @@ def _split_kv_attention(p, x, cache_k, cache_v, pos, cfg, sh, cache_sh, *,
     q_dim a layer), the new row written only where this rank owns slot
     ``pos % T``, attention over the rank's slice of the sequence with its
     absolute ``kv_pos`` masked, the ranks' partial softmaxes combined
-    (`split_kv_combine`), and the rank's heads taken for the
-    row-parallel ``wo``."""
+    (`split_kv_combine`), and the rank's columns of every head's output
+    taken for the row-parallel ``wo`` (`_rows_out`)."""
     b = x.shape[0]
     hd, nh = cfg.resolved_head_dim, cfg.n_heads
     mesh = cache_sh.mesh
     ax = col.model_axis(mesh)
     seq_axes = col.leaf_axes(cache_sh)[1]
     rows = torch.arange(b, device=x.device)
-    q = _whole_heads(p, x, sh, "wq", "bq", ax).reshape(b, 1, nh, hd)
-    k = _whole_heads(p, x, sh, "wk", "bk", ax).reshape(
-        b, 1, cfg.n_kv_heads, hd)
-    v = _whole_heads(p, x, sh, "wv", "bv", ax).reshape(
-        b, 1, cfg.n_kv_heads, hd)
-    if "q_norm" in p:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    if rope:
-        q = apply_rope(q, pos[:, None], cfg.rope_theta)
-        k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    q, k, v = _decode_qkv(p, x, cfg, pos, sh, ax, rope=rope)
 
     groups = col.axis_groups(mesh, seq_axes)
     part, n = col.group_index(groups)
@@ -381,12 +512,8 @@ def _split_kv_attention(p, x, cache_k, cache_v, pos, cfg, sh, cache_sh, *,
                               window=window)
     out = col.split_kv_combine(*parts, groups)  # (B, H, 1, hd)
     out = out.transpose(1, 2).to(new_v.dtype)  # (B, 1, H, hd)
-    if ax is None or col.model_dim(sh["wo"]) is None:
-        return out.reshape(b, 1, cfg.q_dim) @ p["wo"], new_k, new_v
-    hl = _local_heads(cfg, ax)
-    mine_heads = out[:, :, ax.index * hl:(ax.index + 1) * hl]
-    out = mine_heads.reshape(b, 1, hl * hd) @ p["wo"]
-    return col.reduce_from_model(out, ax.groups), new_k, new_v
+    return _rows_out(out.reshape(b, 1, cfg.q_dim), p, sh, ax, 0), new_k, \
+        new_v
 
 
 # ------------------------------------------------------------------ embedding / head

@@ -20,6 +20,18 @@ Layer stack: ``n_groups = n_layers // len(pattern)`` stacked groups of
 2).  The decode state keeps batch at axis 2 of its grouped recurrent
 leaves, so the slot engines refuse this family
 (`families.validate_slot_layout`), as the reference's do.
+
+Under a plan (`parallel.use_plan`) every rank runs on its parts of the
+params, read from their shardings (`param_shardings`): FSDP leaves are
+gathered a block at a time (inside a group's recompute); the recurrent
+block's width splits over the model axis (``wx``/``wgate`` column-split,
+the conv, ``ba``/``bi``/``lam`` and the decode state's channels the
+rank's), and the conv and the RG-LRU are per channel, so they run on
+the rank's channels; ``wa``/``wi`` split by rows, so their partial
+products are reduce-scattered to the rank's columns, and ``wo`` is
+row-parallel.  The MQA attention block runs as the dense family's (its
+one KV head gathered for use), the MLPs column/row split, the embedding
+and head vocab-parallel.
 """
 from __future__ import annotations
 
@@ -33,6 +45,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.init_utils import KeyGen, make, split_tree
 from repro_torch.models.layers import (
     _gelu,
+    _tp_axis,
     apply_mlp,
     apply_norm,
     attention_block,
@@ -45,6 +58,9 @@ from repro_torch.models.layers import (
     init_norm,
     lm_head,
 )
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel.axes import current_plan
+from repro_torch.parallel.sharding_utils import param_shardings, per_layer
 from repro_torch.tree import tree_leaves, tree_unstack
 
 RGLRU_C = 8.0
@@ -131,15 +147,25 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _rec_block(p: dict, x, state, cfg: ModelConfig):
-    """x: (B, S, d); state: {conv (B, W−1, dr), h (B, dr)} or None.
-    Returns (x, new state)."""
+def _sub(sh, key):
+    return None if sh is None else sh[key]
+
+
+def _rec_block(p: dict, x, state, cfg: ModelConfig, sh=None):
+    """x: (B, S, d); state: {conv (B, W−1, dr), h (B, dr)} or None (the
+    rank's channels under a plan).  Returns (x, new state).  ``sh``: the
+    block's param shardings under a plan (FSDP leaves gathered here)."""
+    if sh is not None:
+        p = col.gather_fsdp(p, sh)
     b, s, _ = x.shape
-    dr = cfg.d_rnn or cfg.d_model
     w = cfg.conv_width
+    ax = _tp_axis(sh, "wx")
     h_in = apply_norm(p["norm"], x, cfg)
+    if ax is not None:
+        h_in = col.copy_to_model(h_in, ax.groups)
     xb = h_in @ p["wx"]
     gate = h_in @ p["wgate"]
+    dr = xb.shape[-1]  # every channel, or the rank's
 
     conv_tail = state["conv"] if state is not None else torch.zeros(
         (b, w - 1, dr), dtype=xb.dtype, device=xb.device)
@@ -148,8 +174,12 @@ def _rec_block(p: dict, x, state, cfg: ModelConfig):
     y = sum(xc[:, i:i + s, :] * p["conv"][i][None, None, :] for i in range(w))
     new_conv_tail = xc[:, -(w - 1):, :] if w > 1 else conv_tail
 
-    r = torch.sigmoid(y @ p["wa"] + p["ba"])
-    i = torch.sigmoid(y @ p["wi"] + p["bi"])
+    ra, ri = y @ p["wa"], y @ p["wi"]
+    if ax is not None:  # row-split: the rank's columns of the sums
+        ra = col.reduce_scatter(ra, ax.groups, -1)
+        ri = col.reduce_scatter(ri, ax.groups, -1)
+    r = torch.sigmoid(ra + p["ba"])
+    i = torch.sigmoid(ri + p["bi"])
     log_a = (-RGLRU_C * _softplus(p["lam"]) * r).float()
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9))
@@ -159,28 +189,38 @@ def _rec_block(p: dict, x, state, cfg: ModelConfig):
     h = _rglru_scan(a, bt, h0)
     new_state = {"conv": new_conv_tail, "h": h[:, -1]}
     out = (_gelu(gate) * h.to(x.dtype)) @ p["wo"]
+    if ax is not None:
+        out = col.reduce_from_model(out, ax.groups)
     x = x + out
     h2 = apply_norm(p["mlp_norm"], x, cfg)
-    return x + apply_mlp(p["mlp"], h2, activation="gelu"), new_state
+    return x + apply_mlp(p["mlp"], h2, activation="gelu",
+                         sh=_sub(sh, "mlp")), new_state
 
 
-def _attn_block(p: dict, x, positions, cfg: ModelConfig):
+def _attn_block(p: dict, x, positions, cfg: ModelConfig, sh=None):
+    if sh is not None:
+        p = col.gather_fsdp(p, sh)
     h = apply_norm(p["norm"], x, cfg)
     x = x + attention_block(p["attn"], h, positions, cfg,
-                            window=cfg.sliding_window)
+                            window=cfg.sliding_window, sh=_sub(sh, "attn"))
     h = apply_norm(p["mlp_norm"], x, cfg)
-    return x + apply_mlp(p["mlp"], h, activation="gelu")
+    return x + apply_mlp(p["mlp"], h, activation="gelu", sh=_sub(sh, "mlp"))
 
 
-def _group(x, gp: dict, positions, cfg: ModelConfig):
+def _group(x, gp: dict, positions, cfg: ModelConfig, sh=None):
     """One group of ``cfg.block_pattern`` over the whole sequence, no
     state."""
     for i, kind in enumerate(cfg.block_pattern):
         if kind == "rec":
-            x, _ = _rec_block(gp[f"b{i}"], x, None, cfg)
+            x, _ = _rec_block(gp[f"b{i}"], x, None, cfg, _sub(sh, f"b{i}"))
         else:
-            x = _attn_block(gp[f"b{i}"], x, positions, cfg)
+            x = _attn_block(gp[f"b{i}"], x, positions, cfg, _sub(sh, f"b{i}"))
     return x
+
+
+def _plan_shardings(cfg: ModelConfig):
+    plan = current_plan()
+    return None if plan is None else param_shardings(cfg, plan)
 
 
 def init_rglru_state(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -223,8 +263,14 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     device = params["embed"]["table"].device
     if positions is None:
         positions = torch.arange(s, device=device)[None, :].expand(b, s)
-    x = embed_tokens(params["embed"], tokens, cfg)
-    group_fn = functools.partial(_group, positions=positions, cfg=cfg)
+    sh = _plan_shardings(cfg)
+    emb = params["embed"]
+    if sh is not None:
+        emb = col.gather_fsdp(emb, sh["embed"])
+    x = embed_tokens(emb, tokens, cfg, sh=_sub(sh, "embed"))
+    group_fn = functools.partial(
+        _group, positions=positions, cfg=cfg,
+        sh=None if sh is None else per_layer(sh["groups"]))
     if cfg.remat and torch.is_grad_enabled():
         group_fn = functools.partial(checkpoint, group_fn, use_reentrant=False,
                                      preserve_rng_state=False)
@@ -233,17 +279,33 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
         x = group_fn(x, gp)
     if "tail" in params:
         rem = tree_leaves(params["tail"])[0].shape[0]
+        tail_sh = None if sh is None else per_layer(sh["tail"])
         for tp in tree_unstack(params["tail"], rem):
-            x, _ = _rec_block(tp, x, None, cfg)
+            x, _ = _rec_block(tp, x, None, cfg, tail_sh)
     aux = torch.zeros((), dtype=torch.float32, device=device)
-    return lm_head(params["embed"], x, cfg), aux
+    return lm_head(emb, x, cfg, sh=_sub(sh, "embed")), aux
 
 
 def decode_step(params: dict, state: dict, tokens: torch.Tensor,
-                pos: torch.Tensor, cfg: ModelConfig):
+                pos: torch.Tensor, cfg: ModelConfig, *, cache_shardings=None):
     """One-token decode.  tokens (B, 1); pos (B,).  Returns (logits
-    (B, 1, V), new_state); ``state`` is not written."""
-    x = embed_tokens(params["embed"], tokens, cfg)
+    (B, 1, V), new_state); ``state`` is not written.  Under a plan every
+    argument is this rank's part (the recurrent state's channels, the
+    attention cache as the dense family's), ``cache_shardings`` the
+    state's `NamedSharding` tree, and the logits the rank's vocab
+    columns."""
+    sh = _plan_shardings(cfg)
+    emb = params["embed"]
+    group_sh = tail_sh = cache_sh = None
+    if sh is not None:
+        if cache_shardings is None:
+            raise ValueError("decode under a plan needs the state's "
+                             "shardings (cache_shardings=)")
+        emb = col.gather_fsdp(emb, sh["embed"])
+        group_sh = per_layer(sh["groups"])
+        tail_sh = per_layer(sh["tail"]) if "tail" in sh else None
+        cache_sh = per_layer(cache_shardings["attn"])["k"]
+    x = embed_tokens(emb, tokens, cfg, sh=_sub(sh, "embed"))
     n_groups, rem = _pattern_split(cfg)
     new_state = dict(state)
 
@@ -253,22 +315,28 @@ def decode_step(params: dict, state: dict, tokens: torch.Tensor,
     for g, gp in enumerate(tree_unstack(params["groups"], n_groups)):
         ri = ai = 0
         for i, kind in enumerate(cfg.block_pattern):
+            bsh = _sub(group_sh, f"b{i}")
             if kind == "rec":
                 st = {"conv": rec_conv[g, ri], "h": rec_h[g, ri]}
-                x, ns = _rec_block(gp[f"b{i}"], x, st, cfg)
+                x, ns = _rec_block(gp[f"b{i}"], x, st, cfg, bsh)
                 nrc.append(ns["conv"])
                 nrh.append(ns["h"])
                 ri += 1
             else:
                 li = g * 1 + ai  # the reference's index: one attn a group
                 p = gp[f"b{i}"]
+                if bsh is not None:
+                    p = col.gather_fsdp(p, bsh)
                 h = apply_norm(p["norm"], x, cfg)
                 att, nk, nv = cached_attention(p["attn"], h, ck[li], cv[li],
                                                pos, cfg,
-                                               window=cfg.sliding_window)
+                                               window=cfg.sliding_window,
+                                               sh=_sub(bsh, "attn"),
+                                               cache_sh=cache_sh)
                 x = x + att
                 h = apply_norm(p["mlp_norm"], x, cfg)
-                x = x + apply_mlp(p["mlp"], h, activation="gelu")
+                x = x + apply_mlp(p["mlp"], h, activation="gelu",
+                                  sh=_sub(bsh, "mlp"))
                 nck.append(nk)
                 ncv.append(nv)
                 ai += 1
@@ -279,9 +347,9 @@ def decode_step(params: dict, state: dict, tokens: torch.Tensor,
         ntc, nth = [], []
         for i, tp in enumerate(tree_unstack(params["tail"], rem)):
             st = {"conv": state["tail_conv"][i], "h": state["tail_h"][i]}
-            x, ns = _rec_block(tp, x, st, cfg)
+            x, ns = _rec_block(tp, x, st, cfg, tail_sh)
             ntc.append(ns["conv"])
             nth.append(ns["h"])
         new_state["tail_conv"] = torch.stack(ntc)
         new_state["tail_h"] = torch.stack(nth)
-    return lm_head(params["embed"], x, cfg), new_state
+    return lm_head(emb, x, cfg, sh=_sub(sh, "embed")), new_state

@@ -38,7 +38,15 @@ gathered.  Token shift and ``_ddlerp`` act on the replicated ``x``;
 every replicated tensor entering a split product goes through *f*
 (`parallel.collectives.copy_to_model`).  The decode state's ``wkv``
 leaf (``"state"`` → model) holds the rank's heads, so decode under a
-plan is TP decode through the same `_time_mix`.  FSDP leaves are
+plan is TP decode through the same `_time_mix`.  Where the model axis
+divides the columns but not the heads (RWKV-6 3B's 2560 columns and 40
+heads over 16 ranks: 160 columns, 2.5 heads a rank), ``w0``, ``u``, the
+GroupNorm and the state stay whole: each rank gathers r, k, v and the
+decay's columns for use (`gather_for_use`, whose backward
+reduce-scatters), runs the WKV on all 40 heads (B7 at (B, S, 40, 64) on
+every rank), takes its 160 columns of the normed output into its gate
+and the row-split ``wo``, and the whole head leaves pass *f* (their
+gradients summed over the ranks' columns).  FSDP leaves are
 gathered a layer at a time, inside the layer's recompute.
 """
 from __future__ import annotations
@@ -125,6 +133,14 @@ def init_rwkv(generator: torch.Generator, cfg: ModelConfig) -> tuple[dict, dict]
     return split_tree(tree)
 
 
+def _dot(a, w):
+    """``a @ w`` in the promoted dtype of both, as JAX promotes a float32
+    stream (the μ mix is float32) against a bfloat16 weight; a no-op cast
+    in a float32 model."""
+    dt = torch.promote_types(a.dtype, w.dtype)
+    return a.to(dt) @ w.to(dt)
+
+
 def _token_shift(x, prev):
     """Shift right by one: (B, S, d) with prev (B, d) as token −1."""
     return torch.cat([prev[:, None, :], x[:, :-1, :]], dim=1)
@@ -187,25 +203,30 @@ def _time_mix(p: dict, x, prev_tok, wkv_state, cfg: ModelConfig, *,
     hd = cfg.rwkv_head_dim
     h = cfg.n_rwkv_heads
     ax = _tp_axis(sh, "wr")
-    if ax is not None:
-        if col.model_dim(sh["w0"]) is None:
-            raise ValueError(f"the plan splits the {h} RWKV heads' columns "
-                             f"over a model axis of {ax.size} but not the "
-                             "heads: a head would split")
+    # the plan splits the columns but not the heads (40 over 16): every
+    # rank gathers r, k, v and the decay's columns and runs every head
+    every = ax is not None and col.model_dim(sh["w0"]) is None
+    if ax is not None and not every:
         h //= ax.size
     xx = _token_shift(x, prev_tok)
     streams = _ddlerp(p["mix"], x, xx, cfg)  # (B, S, 5, d)
     xr, xk, xv, xg, xw = [streams[:, :, i] for i in range(5)]
-    lo = torch.tanh(xw @ p["w_lora_a"])
+    lo = torch.tanh(_dot(xw, p["w_lora_a"]))
     if ax is not None:
         xr, xk, xv, xg, lo = (col.copy_to_model(a, ax.groups)
                               for a in (xr, xk, xv, xg, lo))
-    r = (xr @ p["wr"]).reshape(b, s, h, hd)
-    k = (xk @ p["wk"]).reshape(b, s, h, hd)
-    v = (xv @ p["wv"]).reshape(b, s, h, hd)
-    g = F.silu(xg @ p["wg"])
-    omega = p["w0"].reshape(1, 1, h, hd) + (lo @ p["w_lora_b"]).reshape(
-        b, s, h, hd)
+    r, k, v, wl = (_dot(xr, p["wr"]), _dot(xk, p["wk"]), _dot(xv, p["wv"]),
+                  _dot(lo, p["w_lora_b"]))
+    g = F.silu(_dot(xg, p["wg"]))
+    head = {n: p[n] for n in ("w0", "u", "gn_scale", "gn_bias")}
+    if every:
+        r, k, v, wl = (col.gather_for_use(a, ax.groups, -1)
+                       for a in (r, k, v, wl))
+        # replicated leaves used alike on every rank, each rank's output
+        # columns only its own: *f* sums their gradients
+        head = {n: col.copy_to_model(t, ax.groups) for n, t in head.items()}
+    r, k, v = (a.reshape(b, s, h, hd) for a in (r, k, v))
+    omega = head["w0"].reshape(1, 1, h, hd) + wl.reshape(b, s, h, hd)
     # `clip`, not `torch.clamp`: the reference's gradient at a tie
     lw = clip(-torch.exp(omega.float()), LOG_DECAY_MIN, -1e-6)
 
@@ -219,7 +240,7 @@ def _time_mix(p: dict, x, prev_tok, wkv_state, cfg: ModelConfig, *,
                   < lengths[:, None])[..., None, None]
         lw = torch.where(active, lw, 0.0)
         kf = torch.where(active, kf, 0.0)
-    u = p["u"].float()
+    u = head["u"].float()
     if chunked:
         y, wkv_state = wkv_chunked(rf, kf, vf, lw, u, wkv_state,
                                    impl=cfg.wkv_impl)
@@ -230,11 +251,15 @@ def _time_mix(p: dict, x, prev_tok, wkv_state, cfg: ModelConfig, *,
     mu = y.mean(-1, keepdim=True)
     var = y.var(-1, keepdim=True, correction=0)
     y = (y - mu) * torch.rsqrt(var + 64e-5)
-    y = y * p["gn_scale"][None, None] + p["gn_bias"][None, None]
-    y = y.reshape(b, s, h * hd).to(x.dtype) * g
+    y = y * head["gn_scale"][None, None] + head["gn_bias"][None, None]
+    y = y.reshape(b, s, h * hd)
+    if every:  # this rank's columns, into the row-split wo
+        n = g.shape[-1]
+        y = y[..., ax.index * n:(ax.index + 1) * n]
+    y = y.to(x.dtype) * g
     shift = (x[:, -1, :] if lengths is None
              else _last_active(x, lengths, prev_tok))
-    out = y @ p["wo"]
+    out = _dot(y, p["wo"])
     if ax is not None:
         out = col.reduce_from_model(out, ax.groups)
     return out, shift, wkv_state
@@ -249,16 +274,16 @@ def _channel_mix(p: dict, x, prev_tok, cfg: ModelConfig, *, lengths=None,
              else _last_active(x, lengths, prev_tok))
     axk, axr = _tp_axis(sh, "wk"), _tp_axis(sh, "wr")
     if axk is None and axr is None:
-        kk = torch.square(torch.relu(xk @ p["wk"]))
-        rr = torch.sigmoid(xr @ p["wr"])
-        return rr * (kk @ p["wv"]), shift
+        kk = torch.square(torch.relu(_dot(xk, p["wk"])))
+        rr = torch.sigmoid(_dot(xr, p["wr"]))
+        return rr * _dot(kk, p["wv"]), shift
     if axk is not None:
         xk = col.copy_to_model(xk, axk.groups)
-    kv = torch.square(torch.relu(xk @ p["wk"])) @ p["wv"]  # partial if axk
+    kv = _dot(torch.square(torch.relu(_dot(xk, p["wk"]))), p["wv"])  # partial if axk
     if axr is None:
-        return torch.sigmoid(xr @ p["wr"]) * col.reduce_from_model(
+        return torch.sigmoid(_dot(xr, p["wr"])) * col.reduce_from_model(
             kv, axk.groups), shift
-    rr = torch.sigmoid(col.copy_to_model(xr, axr.groups) @ p["wr"])
+    rr = torch.sigmoid(_dot(col.copy_to_model(xr, axr.groups), p["wr"]))
     if axk is not None:
         kv = col.reduce_scatter(kv, axr.groups, -1)
     else:  # whole kv, of which this rank uses its slice

@@ -14,6 +14,19 @@ and each cross block under `torch.utils.checkpoint` when ``cfg.remat``
 and grad mode are on.  The gates ``gate_attn``/``gate_mlp`` are float32
 and zero at init, as the reference's: the image path then adds
 ``tanh(0)·out = 0``.
+
+Under a plan (`parallel.use_plan`) every rank runs on its parts of the
+params, read from their shardings (`param_shardings`): FSDP leaves are
+gathered a layer at a time, the self layers run tensor-parallel as the
+dense family's, the gated cross block splits by heads (its query heads
+and the image K/V projected from the replicated embeddings; 8 KV heads
+gathered for use where the model axis does not divide them, as
+`layers._tp_qkv` does) with ``wo`` row-parallel, the MLPs column/row
+split, the embedding and head vocab-parallel.  The gates are replicated
+and scale the reduced (replicated) outputs, ``tanh(gate)`` promoted as
+`_gated` does.  Decode takes the cache's shardings: the self cache as
+the dense family's, the cached image K/V split by heads where they
+divide.
 """
 from __future__ import annotations
 
@@ -22,7 +35,6 @@ import functools
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.attention import dense_attention, gqa_repeat
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.init_utils import KeyGen, make, split_tree
 from repro_torch.models.layers import (
@@ -30,6 +42,8 @@ from repro_torch.models.layers import (
     apply_norm,
     attention_block,
     cached_attention,
+    cross_attention,
+    cross_kv,
     embed_tokens,
     init_attention,
     init_embedding,
@@ -38,6 +52,9 @@ from repro_torch.models.layers import (
     init_norm,
     lm_head,
 )
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel.axes import current_plan
+from repro_torch.parallel.sharding_utils import param_shardings, per_layer
 from repro_torch.tree import tree_unstack
 
 
@@ -79,13 +96,8 @@ def init_vlm(generator: torch.Generator, cfg: ModelConfig) -> tuple[dict, dict]:
     return split_tree(tree)
 
 
-def _cross_kv(p: dict, image_embeds: torch.Tensor, cfg: ModelConfig):
-    """Project image embeddings to this cross layer's K/V (no RoPE)."""
-    b, n, _ = image_embeds.shape
-    hd = cfg.resolved_head_dim
-    k = (image_embeds @ p["wk"]).reshape(b, n, cfg.n_kv_heads, hd)
-    v = (image_embeds @ p["wv"]).reshape(b, n, cfg.n_kv_heads, hd)
-    return k, v
+def _sub(sh, key):
+    return None if sh is None else sh[key]
 
 
 def _gated(gate, y, dtype):
@@ -97,43 +109,43 @@ def _gated(gate, y, dtype):
 
 
 def _cross_block(p: dict, x, image_embeds, cfg: ModelConfig,
-                 kv: tuple | None = None):
+                 kv: tuple | None = None, sh=None, kv_sh=None):
     """The gated cross layer: x attends (unmasked) to the image's K/V,
-    projected from ``image_embeds`` or given as ``kv``."""
-    b, s, _ = x.shape
-    hd = cfg.resolved_head_dim
+    projected from ``image_embeds`` or given as ``kv`` (a decode cache's,
+    ``kv_sh`` its sharding under a plan).  ``sh``: the layer's param
+    shardings under a plan (FSDP leaves gathered here)."""
+    if sh is not None:
+        p = col.gather_fsdp(p, sh)
     h = apply_norm(p["norm"], x, cfg)
-    q = (h @ p["attn"]["wq"]).reshape(b, s, cfg.n_heads, hd)
-    if kv is None:
-        k, v = _cross_kv(p["attn"], image_embeds, cfg)
-    else:
-        k, v = kv
-    n_img = k.shape[1]
-    kr = gqa_repeat(k, cfg.n_heads)
-    vr = gqa_repeat(v, cfg.n_heads)
-    qpos = torch.zeros((b, s), dtype=torch.int32, device=x.device)
-    kpos = torch.zeros((b, n_img), dtype=torch.int32, device=x.device)
-    out = dense_attention(q, kr, vr, qpos, kpos, causal=False)
-    out = out.reshape(b, s, cfg.q_dim) @ p["attn"]["wo"]
+    out = cross_attention(p["attn"], h, cfg, src=image_embeds, kv=kv,
+                          sh=_sub(sh, "attn"), kv_sh=kv_sh)
     x = x + _gated(p["gate_attn"], out, x.dtype)
     h = apply_norm(p["mlp_norm"], x, cfg)
-    return x + _gated(p["gate_mlp"], apply_mlp(p["mlp"], h), x.dtype)
+    return x + _gated(p["gate_mlp"], apply_mlp(p["mlp"], h,
+                                               sh=_sub(sh, "mlp")), x.dtype)
 
 
-def _self_layer(x, lp, positions, cfg: ModelConfig):
+def _self_layer(x, lp, positions, cfg: ModelConfig, sh=None):
+    if sh is not None:
+        lp = col.gather_fsdp(lp, sh)
     h = apply_norm(lp["attn_norm"], x, cfg)
-    x = x + attention_block(lp["attn"], h, positions, cfg)
+    x = x + attention_block(lp["attn"], h, positions, cfg,
+                            sh=_sub(sh, "attn"))
     h = apply_norm(lp["mlp_norm"], x, cfg)
-    return x + apply_mlp(lp["mlp"], h)
+    return x + apply_mlp(lp["mlp"], h, sh=_sub(sh, "mlp"))
 
 
-def _group(x, sp, cp, image_embeds, positions, cfg: ModelConfig):
+def _group(x, sp, cp, image_embeds, positions, cfg: ModelConfig, sh=None):
     """One group: its ``n_self`` self layers (``sp`` stacked on a leading
-    axis), then its cross block ``cp``."""
+    axis), then its cross block ``cp``.  ``sh``: (the self layers', the
+    cross layer's) shardings of one group under a plan."""
     _, n_self = _n_groups(cfg)
-    self_fn = functools.partial(_self_layer, positions=positions, cfg=cfg)
+    self_sh, cross_sh = sh if sh is not None else (None, None)
+    self_fn = functools.partial(
+        _self_layer, positions=positions, cfg=cfg,
+        sh=None if self_sh is None else per_layer(self_sh))
     cross_fn = functools.partial(_cross_block, image_embeds=image_embeds,
-                                 cfg=cfg)
+                                 cfg=cfg, sh=cross_sh)
     if cfg.remat and torch.is_grad_enabled():
         # the layers draw no random numbers: no RNG state to keep
         self_fn = functools.partial(checkpoint, self_fn, use_reentrant=False,
@@ -146,6 +158,11 @@ def _group(x, sp, cp, image_embeds, positions, cfg: ModelConfig):
     return cross_fn(cp, x)
 
 
+def _plan_shardings(cfg: ModelConfig):
+    plan = current_plan()
+    return None if plan is None else param_shardings(cfg, plan)
+
+
 def forward(params: dict, tokens: torch.Tensor, image_embeds: torch.Tensor,
             cfg: ModelConfig, positions: torch.Tensor | None = None):
     """tokens (B, S) + image_embeds (B, N_img, d) → (logits (B, S, V)
@@ -154,15 +171,21 @@ def forward(params: dict, tokens: torch.Tensor, image_embeds: torch.Tensor,
     device = params["embed"]["table"].device
     if positions is None:
         positions = torch.arange(s, device=device)[None, :].expand(b, s)
-    x = embed_tokens(params["embed"], tokens, cfg)
+    sh = _plan_shardings(cfg)
+    emb = params["embed"]
+    if sh is not None:
+        emb = col.gather_fsdp(emb, sh["embed"])
+    x = embed_tokens(emb, tokens, cfg, sh=_sub(sh, "embed"))
     image_embeds = image_embeds.to(x.dtype)
     n_groups, _ = _n_groups(cfg)
+    group_sh = None if sh is None else (per_layer(sh["self"]),
+                                        per_layer(sh["cross"]))
     groups = zip(tree_unstack(params["self"], n_groups),
                  tree_unstack(params["cross"], n_groups))
     for sp, cp in groups:
-        x = _group(x, sp, cp, image_embeds, positions, cfg)
+        x = _group(x, sp, cp, image_embeds, positions, cfg, group_sh)
     aux = torch.zeros((), dtype=torch.float32, device=device)
-    return lm_head(params["embed"], x, cfg), aux
+    return lm_head(emb, x, cfg, sh=_sub(sh, "embed")), aux
 
 
 # ------------------------------------------------------------------ decode
@@ -187,24 +210,45 @@ def init_vlm_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 def prefill_cross_kv(params: dict, image_embeds: torch.Tensor,
                      cfg: ModelConfig) -> dict:
     """Precompute the cross-attention K/V once per request (the encoder
-    side): ``{"k", "v"}`` of (G, B, N_img, K, hd)."""
+    side): ``{"k", "v"}`` of (G, B, N_img, K, hd); under a plan this
+    rank's part of them, as the cache's shardings place it
+    (`layers.cross_kv`)."""
     n_groups, _ = _n_groups(cfg)
+    sh = _plan_shardings(cfg)
+    cross_sh = None if sh is None else per_layer(sh["cross"])
     ks, vs = [], []
     for cp in tree_unstack(params["cross"], n_groups):
-        k, v = _cross_kv(cp["attn"], image_embeds, cfg)
+        if cross_sh is not None:
+            cp = col.gather_fsdp(cp, cross_sh)
+        k, v = cross_kv(cp["attn"], image_embeds, cfg,
+                        sh=_sub(cross_sh, "attn"))
         ks.append(k)
         vs.append(v)
     return {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
-                pos: torch.Tensor, cfg: ModelConfig):
+                pos: torch.Tensor, cfg: ModelConfig, *, cache_shardings=None):
     """One-token decode.  tokens: (B, 1); pos: (B,) absolute positions.
 
     Returns (logits (B, 1, V), new_cache); ``cache`` is not written, and
-    the new cache holds its cross K/V as they were.
+    the new cache holds its cross K/V as they were.  Under a plan every
+    argument is this rank's part, ``cache_shardings`` the cache's
+    `NamedSharding` tree, and the logits are the rank's vocab columns.
     """
-    x = embed_tokens(params["embed"], tokens, cfg)
+    sh = _plan_shardings(cfg)
+    emb = params["embed"]
+    self_sh = cross_sh = cache_self = cache_cross = None
+    if sh is not None:
+        if cache_shardings is None:
+            raise ValueError("decode under a plan needs the cache's "
+                             "shardings (cache_shardings=)")
+        emb = col.gather_fsdp(emb, sh["embed"])
+        self_sh = per_layer(per_layer(sh["self"]))
+        cross_sh = per_layer(sh["cross"])
+        cache_self = per_layer(cache_shardings["self"])["k"]
+        cache_cross = per_layer(cache_shardings["cross"])["k"]
+    x = embed_tokens(emb, tokens, cfg, sh=_sub(sh, "embed"))
     n_groups, n_self = _n_groups(cfg)
     ck, cv = cache["self"]["k"], cache["self"]["v"]
     nks, nvs = [], []
@@ -213,18 +257,22 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     for g, (sp, cp) in enumerate(groups):
         for i, lp in enumerate(tree_unstack(sp, n_self)):
             li = g * n_self + i
+            if self_sh is not None:
+                lp = col.gather_fsdp(lp, self_sh)
             h = apply_norm(lp["attn_norm"], x, cfg)
             att, nk, nv = cached_attention(lp["attn"], h, ck[li], cv[li],
-                                           pos, cfg)
+                                           pos, cfg, sh=_sub(self_sh, "attn"),
+                                           cache_sh=cache_self)
             x = x + att
             h = apply_norm(lp["mlp_norm"], x, cfg)
-            x = x + apply_mlp(lp["mlp"], h)
+            x = x + apply_mlp(lp["mlp"], h, sh=_sub(self_sh, "mlp"))
             nks.append(nk)
             nvs.append(nv)
         kv = (cache["cross"]["k"][g], cache["cross"]["v"][g])
-        x = _cross_block(cp, x, None, cfg, kv=kv)
+        x = _cross_block(cp, x, None, cfg, kv=kv, sh=cross_sh,
+                         kv_sh=cache_cross)
     new_cache = {
         "self": {"k": torch.stack(nks), "v": torch.stack(nvs)},
         "cross": cache["cross"],
     }
-    return lm_head(params["embed"], x, cfg), new_cache
+    return lm_head(emb, x, cfg, sh=_sub(sh, "embed")), new_cache

@@ -69,12 +69,16 @@ The vision path (the paper's workload, DESIGN.md §7) is pure data
 parallelism over `VISION_RULES`: the data-parallel VWW step
 (`train.vision`), the sharded `VisionEngine` and `StreamEngine`, and
 replica pools over `launch.mesh.make_submeshes`.  The LM path runs
-under `plan_for`: the dense, MoE and RWKV families train tensor-,
-expert- and fully-sharded (`train/step.py`, `launch/train.py --world
---model-parallel`), decode split-KV under ``cache_seq_shard``, and the
+under `plan_for`: every family trains tensor- and fully-sharded (the MoE
+family expert-parallel too; `train/step.py`, `launch/train.py --world
+--model-parallel`), heads the model axis does not divide run whole on
+every rank from gathered columns (`models/layers.py::_tp_qkv`,
+`models/rwkv6.py::_time_mix`), decode runs split-KV under
+``cache_seq_shard`` or on a rank's KV heads, checkpoints save the global
+tree and restore by the current plan (`checkpoint.manager`), and the
 `ServeEngine`/`SessionEngine` split their slots over ``"data"``
-(``mesh=``).  The rglru, vlm and encdec families run under a pure data
-plan and raise under a model axis or FSDP (ROADMAP A12c).
+(``mesh=``).  `launch/dryrun.py` runs every cell's step as one rank of a
+fake world on ``meta`` tensors.
 """
 from repro_torch.parallel.axes import (
     P,

@@ -27,9 +27,10 @@ its dimensions is sharded over.  The split-KV decode combines its
 partial softmaxes with `split_kv_combine`; the vocab-parallel loss and
 argmax reduce with `vocab_parallel_nll` and `vocab_parallel_argmax`.
 
-A reduce-scatter is an all-reduce followed by a narrow to the rank's
-slice, on every backend (gloo included): the sum is the same on every
-rank, so the slices agree bit for bit with those of the forward.
+A reduce-scatter is an all-reduce of each slice in turn, each rank
+keeping its own, on every backend (gloo included): the sum is the same
+on every rank, so the slices agree bit for bit with those of the
+forward, and no rank copies the whole tensor.
 
 A failed collective raises (the process group's timeout); nothing falls
 back to a local reduction.
@@ -213,6 +214,32 @@ def _summed(x: torch.Tensor, groups) -> torch.Tensor:
     return _sum_(x.clone(memory_format=torch.contiguous_format), groups)
 
 
+SUM_CHUNK_BYTES = 1 << 28  # the largest part `_summed_slice` copies at once
+
+
+def _summed_slice(x: torch.Tensor, groups, dim: int) -> torch.Tensor:
+    """This rank's slice of ``dim`` of ``x`` summed over ``groups``: the
+    slices all-reduced in turn, in chunks of at most `SUM_CHUNK_BYTES`
+    along ``dim``, in the same order on every rank, each rank keeping its
+    own slice's sums, so no copy of ``x`` larger than its slice is made
+    (an FSDP-gathered embedding's gradient is the size of the whole
+    table)."""
+    i, n = group_index(groups)
+    step = x.shape[dim] // n
+    row = max(1, x.numel() // max(1, x.shape[dim]) * x.element_size())
+    rows = max(1, SUM_CHUNK_BYTES // row)
+    shape = list(x.shape)
+    shape[dim] = step
+    mine = torch.empty(shape, dtype=x.dtype, device=x.device)
+    for j in range(n):
+        for at in range(0, step, rows):
+            k = min(rows, step - at)
+            part = _summed(x.narrow(dim, j * step + at, k), groups)
+            if j == i:
+                mine.narrow(dim, at, k).copy_(part)
+    return mine
+
+
 class _CopyToModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, groups):
@@ -253,15 +280,14 @@ class _GatherForUse(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return _slice(_summed(grad, ctx.groups), ctx.groups, ctx.dim), \
-            None, None
+        return _summed_slice(grad, ctx.groups, ctx.dim), None, None
 
 
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, groups, dim):
         ctx.groups, ctx.dim = groups, dim
-        return _slice(_summed(x.detach(), groups), groups, dim)
+        return _summed_slice(x.detach(), groups, dim)
 
     @staticmethod
     def backward(ctx, grad):

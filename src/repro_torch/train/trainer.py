@@ -2,7 +2,7 @@
 port of `repro.train.trainer`.
 
 * checkpoints are written asynchronously every ``ckpt_every`` steps and
-  at exit; the data-pipeline cursor is stored inside the checkpoint, so
+  at exit (a step already written is not written again); the data-pipeline cursor is stored inside the checkpoint, so
   ``Trainer.restore()`` resumes bit-exact;
 * the straggler monitor tracks a rolling step-time median; steps slower
   than ``k×median`` are logged and counted;
@@ -13,6 +13,11 @@ port of `repro.train.trainer`.
 
 A step's time is the host clock around the step and a synchronize of
 the state's device (the reference's ``jax.block_until_ready``).
+
+Under a world of ranks (``shardings``: the state's `NamedSharding` tree,
+each rank holding its parts) every rank saves (the global tree gathered,
+rank 0 writes) and restores (a barrier, then its parts by the current
+shardings) together (`checkpoint.manager`).
 """
 from __future__ import annotations
 
@@ -68,6 +73,7 @@ class Trainer:
         log_fn: Callable[[str], None] = print,
         straggler: StragglerMonitor | None = None,
         max_restarts: int = 2,
+        shardings=None,
     ):
         self.train_step = train_step
         self.state = state
@@ -79,17 +85,22 @@ class Trainer:
         self.straggler = straggler or StragglerMonitor()
         self.max_restarts = max_restarts
         self.history: list[dict] = []
+        self.shardings = shardings
+        self._saved: int | None = None  # the step last written
 
     def _save(self):
-        if self.ckpt is None:
+        if self.ckpt is None or self._saved == int(self.state["step"]):
             return
+        self._saved = int(self.state["step"])
         self.ckpt.save(int(self.state["step"]), self.state,
-                       extra={"pipeline": self.pipeline.state_dict()})
+                       extra={"pipeline": self.pipeline.state_dict()},
+                       shardings=self.shardings)
 
     def restore(self) -> bool:
         if self.ckpt is None:
             return False
-        restored = self.ckpt.restore_latest(self.state)
+        restored = self.ckpt.restore_latest(self.state,
+                                            shardings=self.shardings)
         if restored is None:
             return False
         self.state, extra = restored

@@ -218,9 +218,32 @@ def sessions(cfg, weights, all_turns, leak_turns):
     return out
 
 
+FAMILY_ARCHS = ("recurrentgemma-9b", "llama-3.2-vision-11b", "whisper-tiny")
+
+
+def family_case(arch: str):
+    """(cfg, params, batch) of a family's SMOKE loss: the family's init
+    seeded 0 and a batch from a seeded generator, the same in every rank
+    and in the test's single process."""
+    cfg = config(arch)
+    family = get_family(cfg)
+    params, _ = family.init(torch.Generator().manual_seed(0), cfg)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 6), generator=gen),
+             "targets": torch.randint(0, cfg.vocab, (4, 6), generator=gen)}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.randn(
+            (4, cfg.n_image_tokens, cfg.d_model), generator=gen)
+    if cfg.family == "encdec":
+        batch["src_embeds"] = torch.randn((4, 6, cfg.d_model), generator=gen)
+    return cfg, params, batch
+
+
 def refusals(weights_by_arch):
-    """What must raise: a slot table the data axis does not divide, and
-    the rglru, vlm and encdec families under a plan with a model axis."""
+    """What must raise: a slot table the data axis does not divide.  And
+    the rglru, vlm and encdec families' loss under a plan with a model
+    axis of 2 (tensor-parallel; FSDP over the rest of the world), which
+    they once refused: the global loss, the shares summed."""
     res = {}
     rwkv = config("rwkv6-3b")
     try:
@@ -228,23 +251,16 @@ def refusals(weights_by_arch):
                     mesh=_mesh(1), device="cpu")
     except ValueError as exc:
         res["max_batch"] = str(exc)
-    plan = plan_for(_mesh(2))
-    for arch in ("recurrentgemma-9b", "llama-3.2-vision-11b", "whisper-tiny"):
-        cfg = config(arch)
-        family = get_family(cfg)
-        params, _ = family.init(torch.Generator().manual_seed(0), cfg)
-        batch = {"tokens": torch.zeros((2, 4), dtype=torch.long),
-                 "targets": torch.zeros((2, 4), dtype=torch.long)}
-        if cfg.family == "vlm":
-            batch["image_embeds"] = torch.zeros(
-                (2, cfg.n_image_tokens, cfg.d_model))
-        if cfg.family == "encdec":
-            batch["src_embeds"] = torch.zeros((2, 4, cfg.d_model))
-        try:
-            with use_plan(plan):
-                family.loss(params, batch, cfg)
-        except NotImplementedError as exc:
-            res[cfg.family] = str(exc)
+    plan = plan_for(_mesh(2), fsdp=True)
+    for arch in FAMILY_ARCHS:
+        cfg, params, batch = family_case(arch)
+        local = local_tree(params, param_shardings(cfg, plan))
+        with use_plan(plan), torch.no_grad():
+            loss, _ = get_family(cfg).loss(
+                local, local_tree(batch, batch_shardings(batch, plan)), cfg)
+            loss = col.all_reduce_sum(loss, col.axis_groups(
+                plan.mesh, col.batch_axes(plan)))
+        res[cfg.family] = float(loss)
     return res
 
 

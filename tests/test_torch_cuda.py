@@ -1521,3 +1521,46 @@ def test_one_rank_nccl_tp_step_matches_the_single_process_step(cuda):
     for a, w in zip(tree_leaves(tp["first"]), tree_leaves(got)):
         assert np.abs(a - w).max() <= 1e-5
     assert tp["b7"] == 2 * cfg.n_layers
+
+def test_tp2_sharded_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """RWKV-6 SMOKE through ``launch/train.py --world 2 --model-parallel 2
+    --ckpt-dir`` on the card (two gloo ranks sharing it): 2 steps and a
+    save, then a restore into a new TP-2 world and step 3, whose
+    checkpoint equals an uninterrupted 3-step run's bit for bit; the
+    checkpoint restored into one process on the card gives the saved
+    global tree bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.common.pytree import flatten_with_names
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import TrainState
+
+    argv = ["--arch", "rwkv6-3b", "--smoke", "--device", "cuda", "--batch",
+            "4", "--seq", "16", "--world", "2", "--model-parallel", "2",
+            "--ckpt-every", "2"]
+    whole, split = tmp_path / "whole", tmp_path / "split"
+    runs = [launch_train.main(argv + ["--ckpt-dir", str(d), "--steps", n])
+            for d, n in ((whole, "3"), (split, "2"), (split, "1"))]
+    assert [r["step"] for r in runs[2]] == [3, 3]
+    assert runs[2][0]["history"][-1]["loss"] == \
+        runs[0][0]["history"][-1]["loss"]
+
+    def arrays(d):
+        with np.load(d / "step_3" / "arrays.npz") as npz:
+            return {k: npz[k] for k in npz.files}
+
+    saved, want = arrays(split), arrays(whole)
+    assert saved.keys() == want.keys()
+    for k in saved:
+        np.testing.assert_array_equal(saved[k], want[k], err_msg=k)
+    cfg = launch_train.launch_config(launch_train._parse(argv))
+    params, _ = get_family(cfg).init(torch.Generator(cuda).manual_seed(1),
+                                     cfg)
+    opt = launch_train.adamw(launch_train.cosine_warmup(1e-3, 1, 2))
+    state, _ = CheckpointManager(split).restore_latest(
+        TrainState(params, opt.init(params)))
+    assert state["step"] == 3
+    for name, leaf in flatten_with_names(state):
+        if name != "step":
+            assert leaf.is_cuda
+            np.testing.assert_array_equal(leaf.cpu().numpy(), saved[name],
+                                          err_msg=name)
